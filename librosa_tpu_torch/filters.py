@@ -1,0 +1,119 @@
+"""Filterbanks and windows, built on the host in float64 numpy.
+
+A filterbank is made once per configuration and cached here as numpy;
+``core.spectrum`` keeps one device copy of it per card. Only the
+products that use it run on the card.
+"""
+
+from __future__ import annotations
+
+import functools
+import warnings
+from typing import Any, Optional, Union
+
+import numpy as np
+import scipy.signal
+import torch
+
+from .core.convert import fft_frequencies, mel_frequencies
+from .util.exceptions import ParameterError
+
+__all__ = ["mel", "get_window"]
+
+
+def get_window(window: Any, Nx: int, *, fftbins: bool = True) -> np.ndarray:
+    """A window of length ``Nx`` as a host array.
+
+    ``window`` is a name (``'hann'``), a name with parameters
+    (``('kaiser', 4.0)``), a scalar (Kaiser beta), a callable taking the
+    length, or the samples themselves (numpy, list or tensor), which must
+    have length ``Nx``. ``fftbins`` selects the periodic form.
+    """
+    if isinstance(window, torch.Tensor):
+        window = window.detach().cpu().numpy()
+    if isinstance(window, (list, np.ndarray)):
+        win = np.asarray(window)
+        if win.shape[0] != Nx:
+            raise ParameterError(f"Window size mismatch: {win.shape[0]:d} != {Nx:d}")
+        return win
+    if callable(window):
+        return window(Nx)
+    if not (isinstance(window, (str, tuple)) or np.isscalar(window)):
+        raise ParameterError(f"Invalid window specification: {window!r}")
+    return np.asarray(scipy.signal.get_window(window, Nx, fftbins=fftbins))
+
+
+def _normalize_rows(w: np.ndarray, norm: Any) -> np.ndarray:
+    """Scale each row of ``w`` to unit ``norm``; rows of (near) zero norm stay."""
+    mag = np.abs(w)
+    if norm == np.inf:
+        length = mag.max(axis=-1, keepdims=True)
+    elif norm == -np.inf:
+        length = mag.min(axis=-1, keepdims=True)
+    elif norm == 0:
+        length = (mag > 0).sum(axis=-1, keepdims=True).astype(np.float64)
+    elif np.issubdtype(type(norm), np.number) and norm > 0:
+        length = (mag**norm).sum(axis=-1, keepdims=True) ** (1.0 / norm)
+    else:
+        raise ParameterError(f"Unsupported norm: {norm!r}")
+    length[length < np.finfo(np.float64).tiny] = 1.0
+    return w / length
+
+
+@functools.lru_cache(maxsize=64)
+def _mel_basis(sr: float, n_fft: int, n_mels: int, fmin: float, fmax: float,
+               htk: bool, norm: Any, dtype: str) -> np.ndarray:
+    # Band i is a triangle on the Hz axis with corners at the mel-spaced
+    # frequencies edges[i] < edges[i + 1] < edges[i + 2]: it rises linearly
+    # from 0 at the first corner to 1 at the middle one, then falls back to
+    # 0 at the last. Each FFT bin takes the triangle's height at its centre.
+    freqs = fft_frequencies(sr=sr, n_fft=n_fft)[None, :]
+    edges = mel_frequencies(n_mels + 2, fmin=fmin, fmax=fmax, htk=htk)
+    left, mid, right = edges[:-2, None], edges[1:-1, None], edges[2:, None]
+    rising = (freqs - left) / (mid - left)
+    falling = (right - freqs) / (right - mid)
+    weights = np.maximum(0.0, np.minimum(rising, falling))
+
+    if norm == "slaney":
+        # divide each triangle by half its width in Hz: equal area per band
+        weights = weights * (2.0 / (right - left))
+    elif isinstance(norm, str):
+        raise ParameterError(f"Unsupported norm={norm}")
+    elif norm is not None:
+        weights = _normalize_rows(weights, norm)
+
+    if not np.all((edges[:-2] == 0) | (weights.max(axis=1) > 0)):
+        warnings.warn(
+            "Empty filters detected in mel frequency basis. Some channels will "
+            "produce empty responses. Try increasing your sampling rate (and "
+            "fmax) or reducing n_mels.",
+            stacklevel=3,
+        )
+    out = weights.astype(np.dtype(dtype))
+    out.setflags(write=False)
+    return out
+
+
+def mel(
+    *,
+    sr: float,
+    n_fft: int,
+    n_mels: int = 128,
+    fmin: float = 0.0,
+    fmax: Optional[float] = None,
+    htk: bool = False,
+    norm: Union[str, float, None] = "slaney",
+    dtype: Any = np.float32,
+) -> np.ndarray:
+    """Mel filterbank of shape ``(n_mels, 1 + n_fft // 2)``.
+
+    Row ``i`` is a triangular band on ``n_mels + 2`` frequencies spaced
+    evenly in mels between ``fmin`` and ``fmax`` (default ``sr / 2``).
+    ``norm='slaney'`` gives each band equal area; a number scales each row
+    to unit norm of that order; ``None`` leaves peaks at 1. The result is
+    cached and read-only.
+    """
+    if fmax is None:
+        fmax = float(sr) / 2
+    return _mel_basis(float(sr), int(n_fft), int(n_mels), float(fmin), float(fmax),
+                      bool(htk), norm, np.dtype(dtype).str)

@@ -1,0 +1,91 @@
+"""The port stands alone (no JAX, nothing of librosa_tpu) and puts arrays where it says."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import librosa_tpu_torch as L
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, librosa_tpu_torch, librosa_tpu_torch.entry\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'librosa_tpu' or m.startswith('librosa_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = sorted((ROOT / "librosa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "librosa_tpu"), (path, mod)
+
+
+def test_numpy_input_with_cuda_default_and_no_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = L.get_device()
+    L.set_device("cuda")
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            L.feature.melspectrogram(y=np.zeros(4096, dtype=np.float32), sr=22050)
+        with pytest.raises(RuntimeError, match="set_device"):
+            L.power_to_db(np.ones((4, 4), dtype=np.float32))
+        # a tensor stays on the device its caller chose
+        M = L.feature.melspectrogram(y=torch.zeros(4096), sr=22050)
+        assert M.device.type == "cpu"
+    finally:
+        L.set_device(prev)
+
+
+def test_default_device_is_cuda_and_settable():
+    prev = L.get_device()
+    try:
+        L.set_device("cuda")
+        assert L.get_device() == torch.device("cuda")
+        L.set_device("cpu")
+        out = L.power_to_db(np.ones((2, 3), dtype=np.float32))
+        assert out.device.type == "cpu"
+    finally:
+        L.set_device(prev)
+
+
+def test_namespace_layout():
+    for name in ("melspectrogram", "mfcc"):
+        assert callable(getattr(L.feature, name))
+    for name in ("mel", "get_window"):
+        assert callable(getattr(L.filters, name))
+    for name in ("power_to_db", "hz_to_mel", "mel_to_hz", "fft_frequencies",
+                 "mel_frequencies", "set_device", "get_device"):
+        assert callable(getattr(L, name))
+    assert callable(L.util.tiny) and callable(L.util.expand_to)
+    assert issubclass(L.ParameterError, L.LibrosaError)
+
+
+def test_util_helpers():
+    assert L.util.tiny(torch.zeros(2, dtype=torch.float64)) == np.finfo(np.float64).tiny
+    assert L.util.tiny(np.zeros(2, dtype=np.int32)) == np.finfo(np.float32).tiny
+    assert L.util.expand_to(torch.ones(3), ndim=3, axes=1).shape == (1, 3, 1)
+    with pytest.raises(L.ParameterError):
+        L.util.expand_to(torch.ones(3, 2), ndim=3, axes=1)
