@@ -64,7 +64,8 @@ def device_table(key: tuple, make: Callable[[], Any], device: torch.device,
     if table is None:
         if len(_tables) >= 128:
             _tables.clear()
-        table = torch.tensor(np.asarray(make()), dtype=dtype, device=device)
+        # C order always: torch.tensor would keep the strides of a transposed array
+        table = torch.tensor(np.ascontiguousarray(make()), dtype=dtype, device=device)
         _tables[full] = table
     return table
 

@@ -14,7 +14,7 @@ import torch
 
 from .. import filters
 from .._device import as_tensor, device_table
-from ..ops.fused_stft import fused_supported, stft_mel_fused, stft_mel_reference
+from ..ops.fused_stft import kernel_refusal, stft_mel_fused, stft_mel_reference
 from ..util.exceptions import ParameterError
 
 __all__ = ["power_to_db"]
@@ -46,17 +46,14 @@ def _stft_mel_core(y: torch.Tensor, window: torch.Tensor, basis: Any, *, n_fft: 
                    hop_length: int, center: bool, pad_mode: str, power: float) -> torch.Tensor:
     """``basis @ |STFT(y)|**power``: the CUDA kernel where it applies, else plain torch.
 
-    Float32 input with constant or reflect padding and a geometry the
-    kernel takes goes to :func:`stft_mel_fused`, which launches the kernel
-    on a CUDA tensor and raises if it cannot. Everything else (float64
-    input, other pad modes, other geometries) takes the plain version by
-    this predicate, never by catching an error.
+    A call that :func:`kernel_refusal` finds no reason to refuse (float32
+    input, constant or reflect padding, a geometry the kernel takes) goes to
+    :func:`stft_mel_fused`, which launches the kernel on a CUDA tensor and
+    raises if that fails. Everything else (float64 input, other pad modes,
+    other geometries) takes the plain version by this predicate, never by
+    catching an error.
     """
-    if (
-        y.dtype == torch.float32
-        and pad_mode in ("constant", "reflect")
-        and fused_supported(n_fft, hop_length)
-    ):
+    if kernel_refusal(y.dtype, n_fft, hop_length, pad_mode) is None:
         fn = stft_mel_fused
     else:
         fn = stft_mel_reference

@@ -10,12 +10,16 @@
 // for k in [0, n_fft/2]. Centre padding ("constant" zeros or "reflect") is
 // synthesised by index, so no padded copy of the signal exists.
 //
-// What bounds it on an H100: operations, not bytes. Each frame moves hop
-// samples in and n_out values out (2.5 KB at n_fft 2048 / hop 512 / 128
-// mels) against ~1.5 MFLOP of useful float32 work (ops/fused_stft.py:
-// kernel_macs_per_frame), some 600 operations per byte where the card's
-// float32 balance is ~20. Most of that work is the dense basis projection
-// (n_out * (1 + n_fft/2) multiply-adds per frame), on CUDA cores.
+// What bounds it on an H100: bytes and operations about equally. Each
+// frame moves hop samples in and n_out values out (2.5 KB at n_fft 2048 /
+// hop 512 / 128 mels) against the work the function needs
+// (ops/fused_stft.py:flops_per_frame): a real FFT, 2.5 n log2 n flops, and
+// the projection through the basis's nonzeros, ~2 per bin for a mel basis.
+// That is ~26 flops per byte, near the card's float32 balance of ~20.
+// This kernel does about six times that work: a complex FFT of real input
+// (twice the real FFT) and a dense projection through the zeros of a
+// banded basis (n_out * (1 + n_fft/2) multiply-adds per frame). A
+// real-input FFT and a banded projection are the next speed steps.
 //
 // Design, one block per (track, tile of `tt` frames), one warp per frame:
 //   1. The block copies its tile's span of samples, (tt-1)*hop + n_fft of
@@ -159,26 +163,30 @@ __global__ void stft_mel_kernel(
   }
 }
 
+constexpr int kMaxDevices = 64;
+int g_smem_limit[kMaxDevices];  // largest dynamic shared memory allowed so far, per device
+
 }  // namespace
 
-// Shared memory one block needs, in bytes.
-extern "C" long long stft_mel_smem_bytes(int n_fft, int hop, int tt) {
-  return (long long)sizeof(float) *
-         (2LL * tt * n_fft + (long long)(tt - 1) * hop + n_fft + n_fft);
-}
-
-// Launch on `stream`. Returns cudaGetLastError() (0 on success).
+// Launch on `stream` with `smem` bytes of dynamic shared memory per block
+// (ops/fused_stft.py:_smem_bytes). Returns cudaGetLastError() (0 on success).
 extern "C" int stft_mel_launch(
     const float* y, const float* win, const float* twiddle,
     const float* basis_t, float* out, long long n_tracks, long long sig_len,
     long long n_frames, int n_fft, int hop, long long lpad, int reflect,
-    int n_out, int tt, float power, void* stream) {
+    int n_out, int tt, float power, int smem, void* stream) {
   int log2_n = 0;
   while ((1 << log2_n) < n_fft) ++log2_n;
-  const long long smem = stft_mel_smem_bytes(n_fft, hop, tt);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > g_smem_limit[device]) {  // raised only when a larger size first comes
+    err = cudaFuncSetAttribute(
+        stft_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    g_smem_limit[device] = smem;
+  }
   const long long tiles = (n_frames + tt - 1) / tt;
   const long long blocks = tiles * n_tracks;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;

@@ -19,10 +19,15 @@ __all__ = ["melspectrogram", "mfcc"]
 
 def _mel_device(sr: float, n_fft: int, device: torch.device, dtype: torch.dtype,
                 **kwargs: Any) -> torch.Tensor:
-    """The mel filterbank on ``device``, made and uploaded once per configuration."""
-    key = ("mel", float(sr), int(n_fft), tuple(sorted(kwargs.items())))
-    return device_table(key, lambda: filters.mel(sr=sr, n_fft=n_fft, **kwargs),
-                        device, dtype)
+    """The mel filterbank ``(n_mels, 1 + n_fft // 2)`` on ``device``, uploaded once per configuration.
+
+    It is kept column-major, as the transpose of a contiguous
+    ``(1 + n_fft // 2, n_mels)`` table: the layout the stft_mel kernel
+    reads, so its wrapper takes the basis without a copy.
+    """
+    key = ("mel.T", float(sr), int(n_fft), tuple(sorted(kwargs.items())))
+    return device_table(key, lambda: filters.mel(sr=sr, n_fft=n_fft, **kwargs).T,
+                        device, dtype).t()
 
 
 def melspectrogram(

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 __all__ = ["build", "load", "build_log"]
 
@@ -57,41 +57,30 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(names: Optional[Iterable[str]] = None) -> None:
-    """Compile every kernel in ``names`` (default: all) that is not built yet.
+def build(name: str) -> None:
+    """Compile kernel ``name`` unless its library is built already.
 
-    The ``nvcc`` processes start together and run in parallel. Raises
-    ``RuntimeError`` with the compiler's output if any build fails.
+    Raises ``RuntimeError`` with the compiler's output if the build fails.
     """
-    names = list(SOURCES) if names is None else list(names)
-    todo = [(n, _lib_path(n)) for n in names if not _lib_path(n).exists()]
-    if not todo:
+    lib = _lib_path(name)
+    if lib.exists():
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for name, lib in todo:
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, lib, tmp, proc in procs:
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited with {proc.returncode}\n{output}")
-            continue
-        lib.with_suffix(".log").write_text(output)
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited with "
+                           f"{proc.returncode}\n{proc.stdout}")
+    lib.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(name)
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib

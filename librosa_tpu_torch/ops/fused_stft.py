@@ -9,15 +9,18 @@ same function (pad, ``unfold``, window, ``torch.fft.rfft``, ``|.|**p``,
 
 Source note. The kernel replaces the TPU kernel
 ``librosa_tpu/ops/pallas_stft.py:_kernel`` (entry ``stft_mel_pallas``). On
-an H100 it is bound by operations, not bytes: the input is read once and
-the output is ``n_out`` values per hop, while the FFT and the dense basis
-projection are float32 CUDA-core work (see ``kernel_macs_per_frame`` for the
-useful work the roofline counts). Its design keeps every intermediate on
-chip, as the TPU kernel did: one block per (track, tile of frames) stages
-the tile's samples in shared memory once, synthesises the centre padding
-by index, runs one radix-2 FFT per warp in shared memory, and projects the
-power spectra onto the basis before writing ``(track, n_out, T)``. No frame
-matrix and no power spectrum touch device memory.
+an H100, bytes and operations bound the function about equally: the input
+is read once and the output is ``n_out`` values per hop, against the work
+``flops_per_frame`` counts (a real FFT and the projection through the
+basis's nonzeros), near the card's float32 balance. Its design keeps every
+intermediate on chip, as the TPU kernel did, so the bytes stay at that
+least: one block per (track, tile of frames) stages the tile's samples in
+shared memory once, synthesises the centre padding by index, runs one
+radix-2 FFT per warp in shared memory, and projects the power spectra onto
+the basis before writing ``(track, n_out, T)``. No frame matrix and no
+power spectrum touch device memory. It does more operations than the
+function needs (a complex FFT of real input, a dense projection); see
+``csrc/stft_mel.cu``.
 
 The TPU kernel's 128-lane factorisation, row DMAs, edge-tile buffers and
 ``lpad % hop`` pre-pad were rules of its compiler; none is carried over.
@@ -26,7 +29,7 @@ The TPU kernel's 128-lane factorisation, row DMAs, edge-tile buffers and
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +42,8 @@ from .fft import frames_power_spectrum
 from .framing import frame_signal
 
 __all__ = [
-    "stft_mel_fused", "stft_mel_reference", "fused_supported",
-    "kernel_macs_per_frame", "launches",
+    "stft_mel_fused", "stft_mel_reference", "fused_supported", "kernel_refusal",
+    "flops_per_frame", "launches",
 ]
 
 #: Kernel launches so far. ``stft_mel_fused`` adds one where it launches the
@@ -54,8 +57,8 @@ _PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
 
 
 def _smem_bytes(n_fft: int, hop_length: int, tt: int) -> int:
-    # frames (re, im) + the tile's span of samples + twiddles; the same
-    # formula as stft_mel_smem_bytes in csrc/stft_mel.cu
+    # frames (re, im) + the tile's span of samples + twiddles, in the order
+    # csrc/stft_mel.cu lays them out; the launch is given this size
     return 4 * (2 * tt * n_fft + (tt - 1) * hop_length + 2 * n_fft)
 
 
@@ -84,27 +87,35 @@ def fused_supported(n_fft: int, hop_length: int) -> bool:
     return _tile_frames(n_fft, hop_length) > 0
 
 
-def _factor(n_fft: int) -> Tuple[int, int]:
-    """Split n_fft = N1 * N2 with N1 = 128, as the TPU kernel's roofline does."""
-    if n_fft % 128 == 0 and n_fft >= 256:
-        return 128, n_fft // 128
-    if n_fft == 128:
-        return 64, 2
-    raise ValueError(f"n_fft={n_fft} has no two-stage factorisation")
+def kernel_refusal(dtype: torch.dtype, n_fft: int, hop_length: int,
+                   pad_mode: str) -> Optional[str]:
+    """Why the CUDA kernel does not take this call, or None if it does.
 
-
-def kernel_macs_per_frame(n_fft: int, n_out: int) -> int:
-    """Useful multiply-adds per frame, for roofline accounting.
-
-    The same count as the TPU kernel's (``pallas_stft.py:125``): a two-stage
-    Cooley-Tukey real DFT (stage A ``2*kh*n2*n1``, stage B ``4*kh*n1*n1``)
-    plus the basis projection ``kh*n1*n_out``, with ``kh = n2 // 2 + 1``.
-    Elementwise work (window, twiddles, ``|.|**p``) is not counted. The
-    roofline counts this useful work whatever implements it.
+    The one support rule: the router in ``core/spectrum.py`` sends a call
+    to the kernel when this is None, and :func:`stft_mel_fused` raises with
+    this reason on a CUDA tensor otherwise.
     """
-    n1, n2 = _factor(n_fft)
-    kh = n2 // 2 + 1
-    return 2 * kh * n2 * n1 + 4 * kh * n1 * n1 + kh * n1 * n_out
+    if dtype != torch.float32:
+        return f"the stft_mel kernel takes float32 input, not {dtype}"
+    if pad_mode not in ("constant", "reflect"):
+        return f"the stft_mel kernel pads 'constant' or 'reflect', not {pad_mode!r}"
+    if not fused_supported(n_fft, hop_length):
+        return f"the stft_mel kernel does not take n_fft={n_fft}, hop={hop_length}"
+    return None
+
+
+def flops_per_frame(n_fft: int, basis_nnz: int) -> int:
+    """Floating-point operations one frame needs, for the roofline bound.
+
+    This counts the function, not a kernel that computes it: the window
+    (``n_fft`` multiplies), a real FFT (``2.5 * n_fft * log2(n_fft)``, half
+    the usual ``5 N log2 N`` of a complex one), ``|X|**2`` (3 per bin) and
+    the projection through the basis's ``basis_nnz`` nonzeros (a multiply
+    and an add each). A mel basis is banded, about 2 nonzeros per bin, so
+    the projection is small beside the FFT.
+    """
+    log2_n = n_fft.bit_length() - 1
+    return n_fft + (5 * n_fft * log2_n) // 2 + 3 * (n_fft // 2 + 1) + 2 * basis_nnz
 
 
 def frame_geometry(sig_len: int, *, n_fft: int, hop_length: int, center: bool,
@@ -143,7 +154,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i64, i64, i64, i32, i32, i64, i32, i32, i32,
-                       ctypes.c_float, p]
+                       ctypes.c_float, i32, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -163,9 +174,13 @@ def stft_mel_fused(
 
     ``y`` is ``(..., n)``; its leading dims fold into tracks. ``window`` is
     ``(n_fft,)`` and ``basis`` ``(n_out, 1 + n_fft // 2)``, numpy or tensors.
-    On a CUDA tensor this launches the kernel (float32 input, ``pad_mode``
-    ``'constant'`` or ``'reflect'``, a geometry ``fused_supported`` accepts)
-    or raises; on a CPU tensor it returns :func:`stft_mel_reference`.
+    On a CUDA tensor this launches the kernel where :func:`kernel_refusal`
+    gives no reason, and raises with that reason otherwise; on a CPU tensor
+    it returns :func:`stft_mel_reference`. The kernel reads the basis by
+    column: a float32 basis on ``y``'s device that is already column-major
+    (the transpose of a contiguous ``(n_bins, n_out)`` tensor, as
+    ``feature.melspectrogram`` keeps its mel basis) is read in place, any
+    other is transposed into a copy first.
     """
     global launches
     y = as_tensor(y)
@@ -174,19 +189,16 @@ def stft_mel_fused(
                                   power=power, center=center, pad_mode=pad_mode)
     if y.device.type != "cuda":
         raise ParameterError(f"stft_mel_fused runs on cuda or cpu, not {y.device}")
-    if y.dtype != torch.float32:
-        raise ParameterError(f"the stft_mel kernel takes float32 input, not {y.dtype}")
-    if pad_mode not in ("constant", "reflect"):
-        raise ParameterError(f"the stft_mel kernel pads 'constant' or 'reflect', not {pad_mode!r}")
-    if not fused_supported(n_fft, hop_length):
-        raise ParameterError(f"the stft_mel kernel does not take n_fft={n_fft}, hop={hop_length}")
+    refusal = kernel_refusal(y.dtype, n_fft, hop_length, pad_mode)
+    if refusal is not None:
+        raise ParameterError(refusal)
     device = y.device
     lead, sig_len = y.shape[:-1], y.shape[-1]
     lpad, n_frames = frame_geometry(sig_len, n_fft=n_fft, hop_length=hop_length,
                                     center=center, pad_mode=pad_mode)
     y2 = y.reshape(-1, sig_len).contiguous()
     win = _table(window, device, torch.float32).contiguous()
-    basis_t = _table(basis, device, torch.float32).t().contiguous()
+    basis_t = _table(basis, device, torch.float32).t().contiguous()  # no copy if column-major
     twiddle = device_table(("twiddle", n_fft), lambda: _twiddles(n_fft), device,
                            torch.float32)
     if tuple(win.shape) != (n_fft,):
@@ -200,13 +212,14 @@ def stft_mel_fused(
     if out.numel() == 0:
         return out.reshape(*lead, n_out, n_frames)
     lib = _kernel_lib()
+    tt = _tile_frames(n_fft, hop_length)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.stft_mel_launch(
             y2.data_ptr(), win.data_ptr(), twiddle.data_ptr(), basis_t.data_ptr(),
             out.data_ptr(), y2.shape[0], sig_len, n_frames, n_fft, hop_length, lpad,
-            int(pad_mode == "reflect" and center), n_out, _tile_frames(n_fft, hop_length),
-            float(power), stream,
+            int(pad_mode == "reflect" and center), n_out, tt, float(power),
+            _smem_bytes(n_fft, hop_length, tt), stream,
         )
     if err != 0:
         raise RuntimeError(f"stft_mel kernel launch failed with CUDA error {err}")

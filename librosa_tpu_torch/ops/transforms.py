@@ -11,7 +11,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["dct_matrix", "dft_matrices"]
+__all__ = ["dct_matrix"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -48,15 +48,3 @@ def dct_matrix(n: int, *, dct_type: int = 2, norm: Optional[str] = "ortho") -> n
     C = C.astype(np.float32)
     C.setflags(write=False)
     return C
-
-
-@functools.lru_cache(maxsize=16)
-def dft_matrices(n_fft: int, *, dtype: str = "float32"):
-    """``(C, S)``, each ``(1 + n_fft // 2, n_fft)``, with ``rfft(x) = C @ x - 1j * (S @ x)``."""
-    k = np.arange(1 + n_fft // 2)[:, None]
-    t = np.arange(n_fft)[None, :]
-    ang = 2.0 * np.pi * k * t / n_fft
-    C, S = np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
-    C.setflags(write=False)
-    S.setflags(write=False)
-    return C, S

@@ -5,10 +5,11 @@ import pytest
 import torch
 
 import librosa_tpu as lt
-from librosa_tpu.ops.transforms import dct_matrix as jax_dct, dft_matrices as jax_dft
+from librosa_tpu.ops.transforms import dct_matrix as jax_dct
 
 import librosa_tpu_torch as L
-from librosa_tpu_torch.ops.transforms import dct_matrix, dft_matrices
+from librosa_tpu_torch.feature.spectral import _mel_device
+from librosa_tpu_torch.ops.transforms import dct_matrix
 
 SR = 22050
 
@@ -74,9 +75,15 @@ def test_dct_matrix_matches_jax(dct_type, norm):
     np.testing.assert_array_equal(got, want)
 
 
-def test_dft_matrices_match_jax():
-    for got, want in zip(dft_matrices(256), jax_dft(256)):
-        np.testing.assert_array_equal(got, want)
+def test_mel_device_table_is_jax_mel_column_major():
+    # the cached device basis holds the same values, laid out as the kernel reads it
+    basis = _mel_device(SR, 512, torch.device("cpu"), torch.float32, n_mels=40)
+    assert basis.shape == (40, 257) and basis.stride() == (1, 40)
+    assert basis.t().is_contiguous()
+    np.testing.assert_allclose(basis.numpy(), lt.filters.mel(sr=SR, n_fft=512, n_mels=40),
+                               rtol=1e-6, atol=1e-8)
+    assert _mel_device(SR, 512, torch.device("cpu"), torch.float32, n_mels=40).t() \
+        .data_ptr() == basis.t().data_ptr()  # made and uploaded once
 
 
 @pytest.mark.parametrize("htk", [False, True])

@@ -118,6 +118,33 @@ def test_support_is_superset_of_pallas():
     assert not fused_stft.fused_supported(2048, 4096)          # hop beyond the frame
 
 
+@pytest.mark.parametrize(
+    "dtype,n_fft,hop,pad_mode,refused",
+    [
+        (torch.float32, 2048, 512, "constant", False),
+        (torch.float32, 2048, 512, "reflect", False),
+        (torch.float64, 2048, 512, "constant", True),
+        (torch.float32, 2048, 512, "edge", True),
+        (torch.float32, 2000, 512, "constant", True),
+    ],
+)
+def test_kernel_refusal_is_the_routing_rule(dtype, n_fft, hop, pad_mode, refused):
+    reason = fused_stft.kernel_refusal(dtype, n_fft, hop, pad_mode)
+    assert (reason is not None) == refused
+    if refused:
+        assert "stft_mel kernel" in reason
+
+
+def test_flops_per_frame_counts_the_function():
+    # n_fft 8: window 8, real FFT 2.5 * 8 * 3 = 60, |X|^2 3 * 5 = 15, 2 per nonzero
+    assert fused_stft.flops_per_frame(8, 10) == 8 + 60 + 15 + 20
+    # the main path's geometry with a 128-band slaney mel basis: the FFT dominates
+    nnz = int(np.count_nonzero(L.filters.mel(sr=SR, n_fft=2048, n_mels=128)))
+    assert nnz < 2 * 1025
+    fft = 5 * 2048 * 11 // 2
+    assert fft < fused_stft.flops_per_frame(2048, nnz) < 1.2 * fft
+
+
 def test_cpu_tensor_does_not_count_a_launch():
     before = fused_stft.launches
     y = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(np.float32))
