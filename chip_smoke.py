@@ -12,9 +12,18 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    64 M samples as bench.py's steady-state buffer) and checks that the
    kernel carried it and that the output is right;
 4. times the kernel, its plain version, a torch.stft + matmul yardstick
-   and the end-to-end path, and prints them with the roofline bound as
-   one ``{"kernels": [...]}`` JSON line;
-5. prints ``{"ok": true, "device": {...}}`` as its last line.
+   and the end-to-end path, with the roofline bound;
+5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
+   plain versions in every variant of the diagnostics, at their default
+   geometry, with the pipeline at WRAP 128 and 1024;
+6. drives the diagnostics through their entry points
+   (``librosa_tpu_torch.diagnostics``), checks that they launched both
+   kernels, and times each variant's kernel, plain version and
+   ``torch.sum`` yardstick beside its bound;
+7. times the row probe at the mel kernel's own tile geometry on the
+   main-path buffer, beside the mel kernel's time, and prints every
+   kernel as one ``{"kernels": [...]}`` JSON line;
+8. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the exit code is not 0 and no result line is
 printed. Without CUDA, or without the package beside it, it fails too.
@@ -40,6 +49,10 @@ MIN_MFCC_SNR_DB = 105.0   # goldens' mfcc tolerance
 # H100 SXM datasheet (dense): HBM bytes/s and float32 CUDA-core FLOP/s
 H100_HBM_BYTES_S = 3.35e12
 H100_F32_FLOP_S = 67e12
+
+DIAG_FAR_WRAP = 1024     # the pipeline over 268.7 MB, beyond the 50 MB L2
+DIAG_RTOL = 1e-5         # sums of the same floats in two orders ...
+DIAG_ATOL_REL = 1e-5     # ... differ by a few ulps of the sum of their magnitudes
 
 
 def snr_db(got, want) -> float:
@@ -133,6 +146,112 @@ def kernel_cases(L, rng):
     return cases
 
 
+def check_case(torch, case) -> float:
+    """Kernel against plain on the card; raises on a miss. Returns max |err|."""
+    got = case.run()
+    want = case.plain()
+    tol = DIAG_ATOL_REL * case.plain(absolute=True) + DIAG_RTOL * want.abs()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    bad = int((err > tol).sum())
+    max_err = float(err.max())
+    print(f"staged kernel vs plain  {case.name}: max |err| {max_err:.3e}, "
+          f"{bad} of {got.numel()} outside rtol {DIAG_RTOL} + atol {DIAG_ATOL_REL} x sum|x|")
+    if bad or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"staged kernel vs plain {case.name}: {bad} values outside "
+                             f"the tolerance, max |err| {max_err:.3e}")
+    return max_err
+
+
+def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
+    """Phases 5-7: the staged-copy kernels checked, driven and timed; their JSON entries."""
+    from librosa_tpu_torch.diagnostics import dma_bisect, dma_pipeline_micro
+    from librosa_tpu_torch.ops import staged_probe
+
+    near = dma_bisect.Inputs(device, wrap=dma_bisect.WRAP, seed=0)
+    far = dma_bisect.Inputs(device, wrap=DIAG_FAR_WRAP, seed=1)
+    cases = [dma_bisect.make_case(name, near) for name in dma_bisect.ALL_NAMES]
+    cases += [dma_pipeline_micro.make_case(near), dma_pipeline_micro.make_case(far)]
+
+    # 5. every variant's kernel against its plain version on the same input
+    before = dict(staged_probe.launches)
+    errs = {case.name: check_case(torch, case) for case in cases}
+    for kernel, n in staged_probe.launches.items():
+        if n <= before[kernel]:
+            raise AssertionError(f"the checks did not launch {kernel}")
+
+    # 6. the diagnostics path through its entry points, counted on its own
+    for kernel in staged_probe.launches:
+        staged_probe.launches[kernel] = 0
+    records = dma_bisect.run(list(dma_bisect.ALL_NAMES), device=device, inputs=near)
+    records.append(dma_pipeline_micro.run(dma_bisect.WRAP, device=device, inputs=near))
+    records.append(dma_pipeline_micro.run(DIAG_FAR_WRAP, device=device, inputs=far))
+    torch.cuda.synchronize()
+    path_launches = dict(staged_probe.launches)
+    print(f"diagnostics path launches: {path_launches}")
+    for kernel, n in path_launches.items():
+        if n < 1:
+            raise AssertionError(f"the diagnostics path did not launch {kernel}")
+
+    timed = {}
+    for case, rec in zip(cases, records):
+        if case.name != rec["name"]:
+            raise AssertionError(f"timed {rec['name']!r} in place of {case.name!r}")
+        plain_ms = time_ms(torch, case.plain, 5)
+        library = case.library()
+        library_ms = time_ms(torch, library, 5) if library is not None else None
+        bound = case.bound_ms
+        timed[case.name] = dict(rec, plain_ms=plain_ms, library_ms=library_ms)
+        print(f"staged {case.name}: kernel {rec['ms']:.4f} ms, "
+              f"{rec['us_per_tile_raw']:.4f} us/tile raw over {case.n_tiles} tiles, "
+              f"staged {case.staged_bytes} B, unique read {case.read_bytes} B, written "
+              f"{case.written_bytes} B, working set {case.read_bytes / 1e6:.1f} MB"
+              f"{' (L2-resident)' if case.l2_resident else ''}; plain {plain_ms:.4f} ms, "
+              f"library {'null' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+              f"{'null (L2-resident)' if bound is None else f'{bound:.4f} ms (bytes)'}")
+
+    # 7. the row probe at the mel kernel's own tile geometry, on the main-path buffer
+    k1 = dma_bisect.k1_staging_case(y, n_fft=MAIN["n_fft"], hop=MAIN["hop_length"],
+                                    n_out=MAIN["n_mels"])
+    errs[k1.name] = check_case(torch, k1)
+    k1_probe_ms = time_ms(torch, k1.run, 24)
+    print(f"staging at the mel kernel's geometry ({k1.kwargs['rows_per_tile']} rows of "
+          f"{k1.kwargs['width']} per tile, {k1.n_tiles} tiles of {k1.kwargs['tt']} frames, "
+          f"output {tuple(k1.out.shape)}): {k1_probe_ms:.4f} ms, staged {k1.staged_bytes} B, "
+          f"written {k1.written_bytes} B; stft_mel kernel {k1_ms:.4f} ms in this run, so "
+          f"staging and write-back account for {100 * k1_probe_ms / k1_ms:.2f} % of it")
+
+    def entry(kernel: str, headline: str, names: list, replaces: str) -> dict:
+        head = timed[headline]
+        case = next(c for c in cases if c.name == headline)
+        return {
+            "name": kernel,
+            "route": "cuda",
+            "source": "librosa_tpu_torch/csrc/staged_probe.cu",
+            "replaces": replaces,
+            "launches": path_launches[kernel],
+            "max_abs_err": max(errs[n] for n in names),
+            "ms": head["ms"],
+            "kernel_ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": case.bound_ms,
+            "bound_by": "bytes",
+            "library_ms": head["library_ms"],
+            "headline": headline,
+            "variants": {n: timed[n]["ms"] for n in names},
+        }
+
+    colsum = [c.name for c in cases if c.kernel == "stage_colsum"]
+    rowprobe = [c.name for c in cases if c.kernel == "stage_rowprobe"]
+    return [
+        entry("stage_colsum", f"pipeline wrap {DIAG_FAR_WRAP}", colsum,
+              "D1 scripts/dma_bisect.py:72 make_m0; D6 scripts/dma_pipeline_micro.py:59 run"),
+        entry("stage_rowprobe", "scale_pre2d", rowprobe,
+              "D2 scripts/dma_bisect.py:121 make_m_out; D3 :177 make_m_edge; "
+              "D4 :270 make_m_kitchen; D5 :340 make_m_scale"),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -148,10 +267,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
 
-    # 0. build
+    # 0. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    for kernel in sorted(_build.SOURCES):
-        _build.build(kernel)
+    _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(_build.SOURCES)}")
     for kernel in sorted(_build.SOURCES):
         for line in _build.build_log(kernel).splitlines():
@@ -286,7 +404,7 @@ def main() -> int:
           f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms; H100 SXM datasheet)")
     print(f"end to end mel -> dB -> mfcc: {e2e_ms:.4f} ms, {samples / (e2e_ms / 1e3):.6e} samples/s "
           f"on {MAIN_SHAPE}")
-    print(json.dumps({"kernels": [{
+    stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
         "source": "librosa_tpu_torch/csrc/stft_mel.cu",
@@ -300,7 +418,9 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "snr_db": main_snr,
-    }]}))
+    }
+    diag_entries = staged_diagnostics(torch, device, y, kernel_ms)
+    print(json.dumps({"kernels": [stft_mel_entry, *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

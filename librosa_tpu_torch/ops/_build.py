@@ -19,14 +19,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
-__all__ = ["build", "load", "build_log"]
+__all__ = ["build", "build_all", "load", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"stft_mel": "stft_mel.cu"}
+SOURCES = {"stft_mel": "stft_mel.cu", "staged_probe": "staged_probe.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,23 +57,36 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(name: str) -> None:
-    """Compile kernel ``name`` unless its library is built already.
+def build_all(names: Iterable[str] = SOURCES) -> None:
+    """Compile every kernel of ``names`` that is not built yet, one ``nvcc`` each, all at once.
 
-    Raises ``RuntimeError`` with the compiler's output if the build fails.
+    Raises ``RuntimeError`` with the compiler's output if a build fails.
     """
-    lib = _lib_path(name)
-    if lib.exists():
-        return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited with "
-                           f"{proc.returncode}\n{proc.stdout}")
-    lib.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    jobs = []
+    for name in names:
+        lib = _lib_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        jobs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited with {proc.returncode}\n{out}")
+            continue
+        lib.with_suffix(".log").write_text(out)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+
+
+def build(name: str) -> None:
+    """Compile kernel ``name`` unless its library is built already."""
+    build_all([name])
 
 
 def load(name: str) -> ctypes.CDLL:
