@@ -24,8 +24,9 @@
 //
 // Design:
 //   - A persistent grid: two blocks per SM, each walking its own tiles, in
-//     runs of `group` consecutive tiles (group > 1 makes one block write
-//     group * tt contiguous floats of each output row).
+//     runs of `group` consecutive tiles (1 for stage_colsum; in
+//     stage_rowprobe, group > 1 makes one block write group * tt contiguous
+//     floats of each output row).
 //   - A tile's span (144 x 512 floats = 288 KB at the default geometry)
 //     does not fit in a block's 227 KB of shared memory, so it is staged in
 //     chunks of at most 32 KB (16 rows of 512 floats) through a ring of
@@ -375,9 +376,9 @@ unsigned grid_for(const Geometry& g, int sms) {
 // Returns cudaGetLastError() (0 on success).
 extern "C" int stage_colsum_launch(
     const float* rows, float* out, long long n_tiles, long long tile_stride, long long wrap,
-    int width, int span_rows, int chunk_rows, int group, void* stream) {
+    int width, int span_rows, int chunk_rows, void* stream) {
   const Geometry g = make_geometry(rows, rows, n_tiles, n_tiles, 0, 0, tile_stride, wrap, 0,
-                                   0, width, span_rows, chunk_rows, group);
+                                   0, width, span_rows, chunk_rows, 1);
   if (!geometry_ok(g) || width > kThreads * kMaxColsPerThread) {
     return (int)cudaErrorInvalidValue;
   }

@@ -140,8 +140,9 @@ class Case:
 
     def run(self) -> torch.Tensor:
         """The wrapper: the kernel on a CUDA tensor, the plain version on a CPU one."""
-        fn = staged_probe.colsum_probe if self.kernel == "stage_colsum" else staged_probe.rowprobe
-        return fn(self.rows, group=self.group, out=self.out, **self.kwargs)
+        if self.kernel == "stage_colsum":
+            return staged_probe.colsum_probe(self.rows, out=self.out, **self.kwargs)
+        return staged_probe.rowprobe(self.rows, group=self.group, out=self.out, **self.kwargs)
 
     def plain(self, absolute: bool = False) -> torch.Tensor:
         """The plain version; with ``absolute``, of ``|rows|`` (and ``|edges|``, ``|tables|``)."""

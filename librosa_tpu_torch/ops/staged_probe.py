@@ -162,14 +162,14 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 def colsum_probe(rows: torch.Tensor, *, rows_per_tile: int = 144, width: int = 512,
                  tt: int = 128, n_tiles: int = 4096, wrap: Optional[int] = 128,
-                 group: int = 1, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Column sums of the last of ``n_tiles`` tiles, as ``(1, width)``.
 
     Tile ``i`` is ``rows_per_tile`` rows from row ``(i % wrap) * tt`` of
     ``rows`` viewed as ``(-1, width)``. On a CUDA tensor the kernel stages
     every tile and writes the last one's sums; on a CPU tensor this returns
-    :func:`colsum_probe_reference`. ``group`` is how many consecutive tiles
-    one block takes; ``out`` may be a preallocated ``(1, width)`` tensor.
+    :func:`colsum_probe_reference`. ``out`` may be a preallocated ``(1,
+    width)`` tensor.
     """
     if rows.device.type == "cpu":
         return colsum_probe_reference(rows, rows_per_tile=rows_per_tile, width=width, tt=tt,
@@ -181,16 +181,14 @@ def colsum_probe(rows: torch.Tensor, *, rows_per_tile: int = 144, width: int = 5
               n_edge=0, e_start=None, edges=None)
     if width > _COLSUM_MAX_WIDTH:
         raise ParameterError(f"stage_colsum takes width <= {_COLSUM_MAX_WIDTH}, got {width}")
-    if group <= 0:
-        raise ParameterError(f"group must be positive, got {group}")
     out = _output(out, (1, width), rows.device)
     _aligned(rows)
     fn = _launch_fn("stage_colsum_launch",
-                    [_P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _P])
+                    [_P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P])
     with torch.cuda.device(rows.device):
         err = fn(rows.data_ptr(), out.data_ptr(), n_tiles, tt,
                  n_tiles if wrap is None else wrap, width, rows_per_tile,
-                 chunk_rows_for(width, rows_per_tile), group,
+                 chunk_rows_for(width, rows_per_tile),
                  torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stage_colsum kernel launch failed with CUDA error {err}")
