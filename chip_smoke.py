@@ -5,14 +5,16 @@ Run from the root of a checkout with ``python3 chip_smoke.py`` on a machine
 with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
 
 1. builds every CUDA kernel of the port from ``librosa_tpu_torch/csrc``;
-2. holds each kernel against its plain PyTorch version on the card, and
-   the mel kernel against a float64 numpy reference;
+2. holds each kernel against its plain PyTorch version on the card (every
+   n_fft the mel kernel takes, ragged tiles, empty and two-column basis
+   rows, a silent second per frame, a quiet track per track), and the mel
+   kernel against a float64 numpy reference;
 3. drives the main path, y -> melspectrogram -> power_to_db -> mfcc,
    through the public functions on 16 tracks of 2**22 samples (the same
    64 M samples as bench.py's steady-state buffer) and checks that the
    kernel carried it and that the output is right;
-4. times the kernel, its plain version, a torch.stft + matmul yardstick
-   and the end-to-end path, with the roofline bound;
+4. times the kernel, its plain version, a torch.stft + matmul yardstick,
+   the end-to-end path and its dB and MFCC steps, with the roofline bound;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024;
@@ -107,8 +109,11 @@ def time_ms(torch, fn, launches: int, groups: int = 3) -> float:
     return best
 
 
-def kernel_cases(L, rng):
-    """(label, y, window, basis, kwargs, min_snr): the CPU tests' cases and more."""
+def kernel_cases(L, rng, tile_frames):
+    """(label, y, window, basis, kwargs, min_snr): the CPU tests' cases and more.
+
+    ``tile_frames(n_fft, hop)`` is the kernel's frames per block.
+    """
     def mel(n_fft, n_mels=64):
         return L.filters.mel(sr=SR, n_fft=n_fft, n_mels=n_mels)
 
@@ -143,7 +148,97 @@ def kernel_cases(L, rng):
         cases.append((f"n_fft={n_fft} hop={hop} {n_mels} mels", y,
                       L.filters.get_window("hann", n_fft), mel(n_fft, n_mels),
                       dict(n_fft=n_fft, hop_length=hop), MIN_SNR_DB))
+    # every n_fft the kernel takes: a quarter hop, no overlap, and a hop of one sample
+    for log2_n in range(6, 14):
+        n_fft = 1 << log2_n
+        win, basis = L.filters.get_window("hann", n_fft), mel(n_fft, 16 if n_fft < 256 else 64)
+        for hop, length in ((n_fft // 4, 40 * n_fft + 77), (n_fft, 40 * n_fft + 77),
+                            (1, n_fft + 301)):
+            y = (rng.randn(2, length) * 0.1).astype(np.float32)
+            cases.append((f"n_fft={n_fft} hop={hop} len={length}", y, win, basis,
+                          dict(n_fft=n_fft, hop_length=hop), MIN_SNR_DB))
+    # frame counts one beside a multiple of the tile, and basis rows the band walk could miss
+    n_fft, hop = MAIN["n_fft"], MAIN["hop_length"]
+    win, tile = L.filters.get_window("hann", n_fft), tile_frames(n_fft, hop)
+    for n_frames in (5 * tile + 1, 5 * tile - 1):
+        y = (rng.randn(2, (n_frames - 1) * hop) * 0.1).astype(np.float32)
+        cases.append((f"n_fft={n_fft} hop={hop} {n_frames} frames (tile {tile})", y, win,
+                      mel(n_fft, 128), dict(n_fft=n_fft, hop_length=hop), MIN_SNR_DB))
+    y = (rng.randn(2, 3 * SR) * 0.1).astype(np.float32)
+    holes = mel(n_fft, 128).copy()
+    holes[[0, 63, 127]] = 0.0
+    cases.append((f"n_fft={n_fft} basis with all-zero rows", y, win, holes,
+                  dict(n_fft=n_fft, hop_length=hop), MIN_SNR_DB))
+    ends = np.zeros((6, n_fft // 2 + 1), np.float32)
+    ends[:, 0], ends[:, -1] = 1.0, 2.0
+    cases.append((f"n_fft={n_fft} basis rows of first and last column only", y, win, ends,
+                  dict(n_fft=n_fft, hop_length=hop), MIN_SNR_DB))
     return cases
+
+
+def poison(torch, shape, device) -> None:
+    """Fill a buffer of ``shape`` with NaN and free it.
+
+    The wrapper's ``torch.empty`` of the same size then most likely gets
+    this memory, so an element the kernel's schedule skips shows as NaN
+    instead of passing on a stale right value.
+    """
+    torch.full(shape, float("nan"), dtype=torch.float32, device=device)
+
+
+def checked_kernel(torch, fused_stft, yd, win, basis, **kw):
+    """The kernel's output on poisoned memory; raises if any element is not finite."""
+    n_out = basis.shape[0]
+    _, n_frames = fused_stft.frame_geometry(
+        yd.shape[-1], n_fft=kw["n_fft"], hop_length=kw["hop_length"],
+        center=kw.get("center", True), pad_mode=kw.get("pad_mode", "constant"))
+    poison(torch, (*yd.shape[:-1], n_out, n_frames), yd.device)
+    got = fused_stft.stft_mel_fused(yd, win, basis, **kw)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"the stft_mel kernel left {int((~torch.isfinite(got)).sum())} "
+                             f"of {got.numel()} values unwritten or not finite")
+    return got
+
+
+def per_frame_and_track_checks(torch, L, fused_stft, rng, device) -> None:
+    """A silent second inside noise, frame by frame; a quiet track beside a loud one."""
+    n_fft, hop = MAIN["n_fft"], MAIN["hop_length"]
+    win = L.filters.get_window("hann", n_fft)
+    basis = L.filters.mel(sr=SR, n_fft=n_fft, n_mels=MAIN["n_mels"])
+    kw = dict(n_fft=n_fft, hop_length=hop)
+
+    y = (rng.randn(2, 4 * SR) * 0.1).astype(np.float32)
+    lo, hi = SR + 100, 2 * SR + 100   # not on a tile's edge
+    y[1, lo:hi] = 0.0
+    got = checked_kernel(torch, fused_stft, torch.from_numpy(y).to(device), win, basis, **kw)
+    starts = np.arange(got.shape[-1]) * hop - n_fft // 2
+    silent = (starts >= lo) & (starts + n_fft <= hi)
+    loud = (starts + n_fft <= lo) | (starts >= hi)
+    frames = got[1].cpu().numpy()
+    worst = float(np.abs(frames[:, silent]).max())
+    level = float(frames[:, loud].mean())
+    print(f"silent second inside noise at 0.1: {int(silent.sum())} silent frames, largest value "
+          f"{worst:.3e} against the loud frames' mean {level:.3e}")
+    if not worst <= 1e-12 * level:
+        raise AssertionError(f"silent frames reach {worst:.3e}, above 1e-12 of {level:.3e}")
+    want = fused_stft.stft_mel_reference(torch.from_numpy(y).to(device), win, basis, **kw)
+    s = snr_db(frames[:, loud], want[1].cpu().numpy()[:, loud])
+    print(f"the same track's loud frames, kernel vs plain: {s:.1f} dB")
+    if not s >= MIN_SNR_DB:
+        raise AssertionError(f"loud frames beside silence: {s:.1f} dB < {MIN_SNR_DB}")
+
+    y = rng.randn(2, 4 * SR).astype(np.float32)
+    y[0] *= 1e-4
+    yd = torch.from_numpy(y).to(device)
+    got = checked_kernel(torch, fused_stft, yd, win, basis, **kw).cpu().numpy()
+    want = mel64(y[0], win, basis, n_fft=n_fft, hop=hop), mel64(y[1], win, basis, n_fft=n_fft,
+                                                                hop=hop)
+    for track, scale in ((0, 1e-4), (1, 1.0)):
+        s = snr_db(got[track], want[track])
+        print(f"track of noise at {scale:g} beside one at {1e-4 / scale:g}, kernel vs float64: "
+              f"{s:.1f} dB")
+        if not s >= MIN_SNR_DB:
+            raise AssertionError(f"track at {scale:g}: {s:.1f} dB < {MIN_SNR_DB}")
 
 
 def check_case(torch, case) -> float:
@@ -172,7 +267,7 @@ def check_case(torch, case) -> float:
 def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
     """Phases 5-7: the staged-copy kernels checked, driven and timed; their JSON entries."""
     from librosa_tpu_torch.diagnostics import dma_bisect, dma_pipeline_micro
-    from librosa_tpu_torch.ops import staged_probe
+    from librosa_tpu_torch.ops import fused_stft, staged_probe
 
     near = dma_bisect.Inputs(device, wrap=dma_bisect.WRAP, seed=0)
     far = dma_bisect.Inputs(device, wrap=DIAG_FAR_WRAP, seed=1)
@@ -217,8 +312,9 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
               f"{'null (L2-resident)' if bound is None else f'{bound:.4f} ms (bytes)'}")
 
     # 7. the row probe at the mel kernel's own tile geometry, on the main-path buffer
-    k1 = dma_bisect.k1_staging_case(y, n_fft=MAIN["n_fft"], hop=MAIN["hop_length"],
-                                    n_out=MAIN["n_mels"])
+    k1 = dma_bisect.k1_staging_case(
+        y, n_fft=MAIN["n_fft"], hop=MAIN["hop_length"], n_out=MAIN["n_mels"],
+        frames_per_tile=fused_stft._tile_frames(MAIN["n_fft"], MAIN["hop_length"]))
     errs[k1.name] = check_case(torch, k1)
     k1_probe_ms = time_ms(torch, k1.run, 24)
     print(f"staging at the mel kernel's geometry ({k1.kwargs['rows_per_tile']} rows of "
@@ -290,20 +386,23 @@ def main() -> int:
 
     # 2. kernel against its plain version on the card, and against float64
     rng = np.random.RandomState(0)
-    for label, y, win, basis, kw, floor in kernel_cases(L, rng):
+    cases = kernel_cases(L, rng, fused_stft._tile_frames)
+    for label, y, win, basis, kw, floor in cases:
         yd = torch.from_numpy(y).to(device)
-        got = fused_stft.stft_mel_fused(yd, win, basis, **kw)
+        got = checked_kernel(torch, fused_stft, yd, win, basis, **kw)
         want = fused_stft.stft_mel_reference(yd, win, basis, **kw)
         torch.cuda.synchronize()
         s = snr_db(got.cpu().numpy(), want.cpu().numpy())
         print(f"kernel vs plain  {label}: {s:.1f} dB (floor {floor})")
         if not s >= floor:
             raise AssertionError(f"kernel vs plain {label}: {s:.1f} dB < {floor}")
+    print(f"kernel vs plain: {len(cases)} cases passed, each on NaN-filled memory")
+    per_frame_and_track_checks(torch, L, fused_stft, rng, device)
     win = L.filters.get_window("hann", MAIN["n_fft"])
     mel_basis = L.filters.mel(sr=SR, n_fft=MAIN["n_fft"], n_mels=MAIN["n_mels"])
     y4 = (rng.randn(4 * SR) * 0.1).astype(np.float32)
-    got = fused_stft.stft_mel_fused(torch.from_numpy(y4).to(device), win, mel_basis,
-                                    n_fft=MAIN["n_fft"], hop_length=MAIN["hop_length"])
+    got = checked_kernel(torch, fused_stft, torch.from_numpy(y4).to(device), win, mel_basis,
+                         n_fft=MAIN["n_fft"], hop_length=MAIN["hop_length"])
     snr64 = snr_db(got.cpu().numpy(), mel64(y4, win, mel_basis, n_fft=MAIN["n_fft"],
                                             hop=MAIN["hop_length"]))
     print(f"kernel vs float64 numpy, 4 s at n_fft 2048 / hop 512 / 128 mels: {snr64:.1f} dB")
@@ -358,10 +457,13 @@ def main() -> int:
 
     # 4. times at the main-path shape
     win_d = torch.from_numpy(win.astype(np.float32)).to(device)
-    # column-major, as feature.melspectrogram keeps it, so the kernel reads it in place
-    basis_d = torch.from_numpy(np.ascontiguousarray(mel_basis.T, np.float32)).to(device).t()
+    # row-major with its band table beside it, as feature.melspectrogram keeps them
+    basis_d = torch.from_numpy(mel_basis.astype(np.float32)).to(device)
+    bands_d = torch.from_numpy(fused_stft.basis_bands(mel_basis)).to(device)
     kw = dict(n_fft=MAIN["n_fft"], hop_length=MAIN["hop_length"])
-    k_out = fused_stft.stft_mel_fused(y, win_d, basis_d, **kw)
+    full = dict(kw, power=2.0, center=True, pad_mode="constant")
+    poison(torch, (MAIN_SHAPE[0], MAIN["n_mels"], n_frames), device)
+    k_out = fused_stft._fused(y, win_d, basis_d, bands_d, **full)
     p_out = fused_stft.stft_mel_reference(y, win_d, basis_d, **kw)
     max_abs_err = float((k_out - p_out).abs().max())
     # per track, so that one wrong track cannot hide in the pooled SNR
@@ -376,7 +478,9 @@ def main() -> int:
     if not main_snr >= MIN_SNR_DB:
         raise AssertionError(f"kernel vs plain at the main-path shape: track "
                              f"{int(track_snr.argmin())} at {main_snr:.1f} dB < {MIN_SNR_DB}")
-    kernel_ms = time_ms(torch, lambda: fused_stft.stft_mel_fused(y, win_d, basis_d, **kw), 20)
+    # as the main path calls it, the band table given; then with the table derived per call
+    kernel_ms = time_ms(torch, lambda: fused_stft._fused(y, win_d, basis_d, bands_d, **full), 20)
+    derived_ms = time_ms(torch, lambda: fused_stft.stft_mel_fused(y, win_d, basis_d, **kw), 20)
     plain_ms = time_ms(torch, lambda: fused_stft.stft_mel_reference(y, win_d, basis_d, **kw), 5)
 
     def library():
@@ -387,6 +491,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     library_ms = time_ms(torch, library, 5)
     e2e_ms = time_ms(torch, lambda: main_path(y), 5)
+    db_in = L.feature.melspectrogram(y=y, sr=SR, **MAIN)
+    db_ms = time_ms(torch, lambda: L.power_to_db(db_in), 5)
+    mfcc_in = L.power_to_db(db_in)
+    mfcc_ms = time_ms(torch, lambda: L.feature.mfcc(S=mfcc_in, n_mfcc=20), 5)
+    del db_in, mfcc_in
     samples = MAIN_SHAPE[0] * MAIN_SHAPE[1]
     frames = MAIN_SHAPE[0] * n_frames
 
@@ -400,17 +509,20 @@ def main() -> int:
     bytes_ms = 1e3 * bytes_moved / H100_HBM_BYTES_S
     ops_ms = 1e3 * flops / H100_F32_FLOP_S
     bound_ms = max(bytes_ms, ops_ms)
-    n_bins, log2_n = MAIN["n_fft"] // 2 + 1, MAIN["n_fft"].bit_length() - 1
-    done_frame = (MAIN["n_fft"] + 5 * MAIN["n_fft"] * log2_n + 3 * n_bins
-                  + 2 * MAIN["n_mels"] * n_bins)  # complex FFT, dense projection
+    # the kernel as written: window, a complex FFT of n_fft/2 points, 18 flops to unpack
+    # each pair of bins, |X|^2, and the projection through every column of each row's band
+    half, band_cells = MAIN["n_fft"] // 2, int((bands_d[:, 1] - bands_d[:, 0]).sum())
+    done_frame = (MAIN["n_fft"] + 5 * half * (half.bit_length() - 1) + 18 * (half // 2 + 1)
+                  + 3 * (half + 1) + 2 * band_cells)
     print(f"bound counts {flops_frame} flops per frame (basis nonzeros {basis_nnz} of "
           f"{basis_d.numel()}) and {bytes_moved} bytes, over {frames} frames; "
           f"the kernel as written does {done_frame} flops per frame")
     print(f"stft_mel kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"torch.stft+matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms; H100 SXM datasheet)")
+    print(f"stft_mel with the band table derived on the card per call: {derived_ms:.4f} ms")
     print(f"end to end mel -> dB -> mfcc: {e2e_ms:.4f} ms, {samples / (e2e_ms / 1e3):.6e} samples/s "
-          f"on {MAIN_SHAPE}")
+          f"on {MAIN_SHAPE}; alone, power_to_db {db_ms:.4f} ms, mfcc (DCT) {mfcc_ms:.4f} ms")
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",

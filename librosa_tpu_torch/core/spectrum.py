@@ -14,7 +14,7 @@ import torch
 
 from .. import filters
 from .._device import as_tensor, device_table
-from ..ops.fused_stft import kernel_refusal, stft_mel_fused, stft_mel_reference
+from ..ops.fused_stft import _fused, kernel_refusal, stft_mel_reference
 from ..util.exceptions import ParameterError
 
 __all__ = ["power_to_db"]
@@ -42,23 +42,24 @@ def _win_device(window: Any, win_length: int, n_fft: int, device: torch.device,
                         device=device)
 
 
-def _stft_mel_core(y: torch.Tensor, window: torch.Tensor, basis: Any, *, n_fft: int,
-                   hop_length: int, center: bool, pad_mode: str, power: float) -> torch.Tensor:
+def _stft_mel_core(y: torch.Tensor, window: torch.Tensor, basis: Any,
+                   bands: Optional[torch.Tensor] = None, *, n_fft: int, hop_length: int,
+                   center: bool, pad_mode: str, power: float) -> torch.Tensor:
     """``basis @ |STFT(y)|**power``: the CUDA kernel where it applies, else plain torch.
 
     A call that :func:`kernel_refusal` finds no reason to refuse (float32
     input, constant or reflect padding, a geometry the kernel takes) goes to
-    :func:`stft_mel_fused`, which launches the kernel on a CUDA tensor and
-    raises if that fails. Everything else (float64 input, other pad modes,
-    other geometries) takes the plain version by this predicate, never by
-    catching an error.
+    the fused path, which launches the kernel on a CUDA tensor and raises
+    if that fails. Everything else (float64 input, other pad modes, other
+    geometries) takes the plain version by this predicate, never by
+    catching an error. ``bands`` is the basis's band table where the caller
+    keeps one (``None``: the fused path derives it).
     """
+    kw = dict(n_fft=n_fft, hop_length=hop_length, power=power, center=center,
+              pad_mode=pad_mode)
     if kernel_refusal(y.dtype, n_fft, hop_length, pad_mode) is None:
-        fn = stft_mel_fused
-    else:
-        fn = stft_mel_reference
-    return fn(y, window, basis, n_fft=n_fft, hop_length=hop_length, power=power,
-              center=center, pad_mode=pad_mode)
+        return _fused(y, window, basis, bands, **kw)
+    return stft_mel_reference(y, window, basis, **kw)
 
 
 # ---------------------------------------------------------------------------

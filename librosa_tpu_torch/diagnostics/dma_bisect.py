@@ -214,10 +214,18 @@ class Case:
 
     @property
     def bound_ms(self) -> Optional[float]:
-        """(bytes read once + bytes written) / HBM rate, for a working set beyond L2."""
-        if self.l2_resident:
-            return None
-        return 1e3 * (self.read_bytes + self.written_bytes) / HBM_BYTES_S
+        """The bytes that must cross the HBM interface, over its rate; None if none must.
+
+        A working set beyond L2 is read once and the output written once.
+        Where the reads are L2-resident, an output that itself exceeds L2
+        still has to be written out, so it alone is the bound; an output
+        that fits as well leaves no HBM bound.
+        """
+        if not self.l2_resident:
+            return 1e3 * (self.read_bytes + self.written_bytes) / HBM_BYTES_S
+        if self.written_bytes >= L2_BYTES:
+            return 1e3 * self.written_bytes / HBM_BYTES_S
+        return None
 
 
 def make_case(name: str, inputs: Inputs, *, n_tiles: int = N_TILES) -> Case:

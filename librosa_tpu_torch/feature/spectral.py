@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -10,6 +10,7 @@ import torch
 from .. import filters
 from .._device import as_tensor, device_table, exact_f32
 from ..core.spectrum import _stft_mel_core, _win_device, power_to_db
+from ..ops.fused_stft import basis_bands
 from ..ops.transforms import dct_matrix
 from ..util.exceptions import ParameterError
 from ..util.utils import expand_to
@@ -18,16 +19,20 @@ __all__ = ["melspectrogram", "mfcc"]
 
 
 def _mel_device(sr: float, n_fft: int, device: torch.device, dtype: torch.dtype,
-                **kwargs: Any) -> torch.Tensor:
-    """The mel filterbank ``(n_mels, 1 + n_fft // 2)`` on ``device``, uploaded once per configuration.
+                **kwargs: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mel filterbank ``(n_mels, 1 + n_fft // 2)`` and its band table, on ``device``.
 
-    It is kept column-major, as the transpose of a contiguous
-    ``(1 + n_fft // 2, n_mels)`` table: the layout the stft_mel kernel
-    reads, so its wrapper takes the basis without a copy.
+    Both are made on the host from the same :func:`filters.mel` array and
+    uploaded once per configuration. The band table (each row's span of
+    nonzero columns, :func:`basis_bands`) is what the stft_mel kernel walks.
     """
-    key = ("mel.T", float(sr), int(n_fft), tuple(sorted(kwargs.items())))
-    return device_table(key, lambda: filters.mel(sr=sr, n_fft=n_fft, **kwargs).T,
-                        device, dtype).t()
+    key = (float(sr), int(n_fft), tuple(sorted(kwargs.items())))
+
+    def mel() -> np.ndarray:
+        return filters.mel(sr=sr, n_fft=n_fft, **kwargs)
+
+    return (device_table(("mel",) + key, mel, device, dtype),
+            device_table(("mel.bands",) + key, lambda: basis_bands(mel()), device, torch.int32))
 
 
 def melspectrogram(
@@ -58,7 +63,7 @@ def melspectrogram(
         S = as_tensor(S)
         if n_fft is None or n_fft // 2 + 1 != S.shape[-2]:
             n_fft = 2 * (S.shape[-2] - 1)
-        basis = _mel_device(sr, n_fft, S.device, S.dtype, **kwargs)
+        basis, _ = _mel_device(sr, n_fft, S.device, S.dtype, **kwargs)
         with exact_f32():
             return torch.matmul(basis, S)
     if y is None:
@@ -74,8 +79,8 @@ def melspectrogram(
     if hop_length is None:
         hop_length = int(win_length // 4)
     window_dev = _win_device(window, win_length, n_fft, y.device, y.dtype)
-    basis = _mel_device(sr, n_fft, y.device, y.dtype, **kwargs)
-    return _stft_mel_core(y, window_dev, basis, n_fft=n_fft, hop_length=hop_length,
+    basis, bands = _mel_device(sr, n_fft, y.device, y.dtype, **kwargs)
+    return _stft_mel_core(y, window_dev, basis, bands, n_fft=n_fft, hop_length=hop_length,
                           center=center, pad_mode=pad_mode, power=float(power))
 
 

@@ -8,19 +8,30 @@ same function (pad, ``unfold``, window, ``torch.fft.rfft``, ``|.|**p``,
 ``torch.matmul``).
 
 Source note. The kernel replaces the TPU kernel
-``librosa_tpu/ops/pallas_stft.py:_kernel`` (entry ``stft_mel_pallas``). On
-an H100, bytes and operations bound the function about equally: the input
-is read once and the output is ``n_out`` values per hop, against the work
-``flops_per_frame`` counts (a real FFT and the projection through the
-basis's nonzeros), near the card's float32 balance. Its design keeps every
-intermediate on chip, as the TPU kernel did, so the bytes stay at that
-least: one block per (track, tile of frames) stages the tile's samples in
-shared memory once, synthesises the centre padding by index, runs one
-radix-2 FFT per warp in shared memory, and projects the power spectra onto
-the basis before writing ``(track, n_out, T)``. No frame matrix and no
-power spectrum touch device memory. It does more operations than the
-function needs (a complex FFT of real input, a dense projection); see
-``csrc/stft_mel.cu``.
+``librosa_tpu/ops/pallas_stft.py:_kernel`` (entry ``stft_mel_pallas``). By
+the roofline an H100 is bound on this function by operations and bytes about
+equally (``flops_per_frame`` against ``hop`` samples in and ``n_out`` values
+out per frame); a kernel for it is bound by the SM's shared-memory
+wavefronts, scheduler slots and occupancy. The design keeps every intermediate
+on chip, as the TPU kernel did, and spends the SM sparingly:
+
+- one block per (track, tile of frames) stages the tile's samples in shared
+  memory once and synthesises the centre padding by index;
+- a real frame of ``n_fft`` samples is packed as ``n_fft / 2`` complex
+  points, transformed by a self-sorting (Stockham) FFT whose radix-4 to
+  radix-16 butterflies live in registers, and unpacked to bins
+  ``0..n_fft/2``; shared memory only carries the exchange between passes,
+  in a padded layout whose stores and loads are free of bank conflicts;
+  the twiddles between passes come from ``_twiddles``, one contiguous run
+  per pass, made in float64 and rounded once;
+- the projection walks only each basis row's band of nonzeros
+  (``basis_bands``), eight rows to a warp, with one sum per frame of the
+  tile in each lane's registers.
+
+No frame matrix and no power spectrum touch device memory, and there is one
+launch per call. ``_fft_plan``, ``_frame_floats``, ``_smem_bytes`` and
+``_twiddles`` mirror the constants of ``csrc/stft_mel.cu``; the launch
+refuses a shared-memory size that disagrees with its own.
 
 The TPU kernel's 128-lane factorisation, row DMAs, edge-tile buffers and
 ``lpad % hop`` pre-pad were rules of its compiler; none is carried over.
@@ -29,7 +40,7 @@ The TPU kernel's 128-lane factorisation, row DMAs, edge-tile buffers and
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,36 +62,86 @@ __all__ = [
 launches = 0
 
 _MAX_SMEM = 232448            # bytes of shared memory one H100 block may use
-_TILE_CHOICES = (8, 4, 2, 1)  # frames per block, one warp each
+_HALF_SMEM = 115712           # ... and the most that lets two blocks share an SM (1 KB reserved each)
+_TILE_CHOICES = (8, 4, 2, 1)  # frames per block
 _PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
               "wrap": "circular"}
 
 
+def _fft_plan(n_fft: int) -> Tuple[int, List[int]]:
+    """``(points per thread, radix of each pass)`` of the ``n_fft / 2``-point complex FFT.
+
+    Every pass but the last takes as many bits as a thread holds points
+    (16 from n_fft 2048, 8 from 256, else 4); the last takes the rest.
+    """
+    log2_h = n_fft.bit_length() - 2
+    bits = 4 if log2_h >= 10 else 3 if log2_h >= 7 else 2
+    passes = [bits] * (log2_h // bits) + ([log2_h % bits] if log2_h % bits else [])
+    return 1 << bits, [1 << b for b in passes]
+
+
+def _exchange_pads(n_fft: int) -> List[Tuple[int, int]]:
+    """``(pad, unit)`` of the exchange after each pass but the last.
+
+    Element ``a`` of an exchange lies at ``a + pad * (a // unit)``. A pass of
+    radix ``R`` behind passes of product ``p`` stores runs of ``p`` elements
+    that lie ``p * R`` apart; shifting each run by ``p`` banks spreads a
+    warp's 32 stores over 32 banks, and the loads (consecutive elements)
+    stay whole. From ``p = 32`` on the runs fill a warp and need no pad.
+    """
+    _, radices = _fft_plan(n_fft)
+    pads, p = [], 1
+    for radix in radices[:-1]:
+        pads.append((p, max(p * radix, 32)) if p < 32 else (0, 32))
+        p *= radix
+    return pads
+
+
+def _frame_floats(n_fft: int) -> int:
+    """Floats of shared memory in one frame's buffer.
+
+    It holds the padded exchange (real parts, then imaginary parts) and
+    later the power spectrum, bins ``0..n_fft/2``, in the real part's place.
+    """
+    half = n_fft // 2
+    pad = max([p * ((half - 1) // unit) for p, unit in _exchange_pads(n_fft)], default=0)
+    return 2 * (half + pad + 1)
+
+
 def _smem_bytes(n_fft: int, hop_length: int, tt: int) -> int:
-    # frames (re, im) + the tile's span of samples + twiddles, in the order
-    # csrc/stft_mel.cu lays them out; the launch is given this size
-    return 4 * (2 * tt * n_fft + (tt - 1) * hop_length + 2 * n_fft)
+    # the tile's span of samples (rounded up to 4 floats), then one buffer per
+    # frame, as csrc/stft_mel.cu lays them out; the launch is given this size
+    span = (tt - 1) * hop_length + n_fft
+    return 4 * (span + (-span) % 4 + tt * _frame_floats(n_fft))
 
 
 def _tile_frames(n_fft: int, hop_length: int) -> int:
-    for tt in _TILE_CHOICES:
-        if _smem_bytes(n_fft, hop_length, tt) <= _MAX_SMEM:
-            return tt
+    """Frames per block: the most that leave room for two blocks on an SM, else the most that fit.
+
+    A frame takes ``n_fft / 2 / points-per-thread`` threads, and a block
+    256 or, where the tile's frames take fewer, those: whole warps.
+    """
+    points, _ = _fft_plan(n_fft)
+    threads = n_fft // 2 // points
+    for limit in (_HALF_SMEM, _MAX_SMEM):
+        for tt in _TILE_CHOICES:
+            if (tt * threads) % 32 == 0 and _smem_bytes(n_fft, hop_length, tt) <= limit:
+                return tt
     return 0
 
 
 def fused_supported(n_fft: int, hop_length: int) -> bool:
     """Whether the CUDA kernel takes an ``(n_fft, hop_length)`` geometry.
 
-    It needs a power-of-two ``n_fft`` from 64 to 8192 (radix-2 FFT, and at
-    least one frame's complex buffer in a block's shared memory) and
-    ``1 <= hop_length <= n_fft``. Against the TPU kernel's
+    It needs a power-of-two ``n_fft`` from 64 to 8192 (its FFT plans, with
+    one frame's ``n_fft / 2`` complex points on at most one block's threads)
+    and ``1 <= hop_length <= n_fft``. Against the TPU kernel's
     ``pallas_supported`` this drops the rules of that kernel's compiler
     (``hop % 128 == 0``, ``hop`` dividing ``n_fft``, ``n_fft >= 256``), so
     it is a superset of that set for every ``n_fft <= 8192``. Above 8192,
     where ``pallas_supported`` says yes, this says no and the plain path runs.
     """
-    if n_fft < 64 or n_fft & (n_fft - 1):
+    if not 64 <= n_fft <= 8192 or n_fft & (n_fft - 1):
         return False
     if not 1 <= hop_length <= n_fft:
         return False
@@ -135,10 +196,44 @@ def frame_geometry(sig_len: int, *, n_fft: int, hop_length: int, center: bool,
 
 
 def _twiddles(n_fft: int) -> np.ndarray:
-    # [cos(2 pi k / N) for k < N/2] + [-sin(2 pi k / N) for k < N/2], made
-    # in float64 and rounded once to float32
-    ang = 2.0 * np.pi * np.arange(n_fft // 2) / n_fft
-    return np.concatenate([np.cos(ang), -np.sin(ang)]).astype(np.float32)
+    """The kernel's float32 tables, made in float64 and rounded once.
+
+    For each pass after the first (radix ``R``, behind passes of product
+    ``p``): ``exp(-2 pi i r k / (p R))`` for ``r = 1..R-1`` and ``k < p``,
+    ``k`` fastest, real parts then imaginary parts, so that a warp's lanes
+    (consecutive ``k``) read consecutive words. Then the unpacking table of
+    the real-input FFT: ``cos(2 pi k / n_fft)`` and ``-sin(2 pi k / n_fft)``
+    for ``k = 0..n_fft/4``.
+    """
+    _, radices = _fft_plan(n_fft)
+    parts, p = [], radices[0]
+    for radix in radices[1:]:
+        ang = -2.0 * np.pi * np.outer(np.arange(1, radix), np.arange(p)) / (p * radix)
+        parts += [np.cos(ang).ravel(), np.sin(ang).ravel()]
+        p *= radix
+    ang = -2.0 * np.pi * np.arange(n_fft // 4 + 1) / n_fft
+    parts += [np.cos(ang), np.sin(ang)]
+    return np.concatenate(parts).astype(np.float32)
+
+
+def basis_bands(basis: Any) -> Any:
+    """Per row of ``basis``, ``[first nonzero column, one past the last)``, as int32 ``(n_out, 2)``.
+
+    A row without a nonzero gets the empty band ``[0, 0)``. A numpy basis
+    gives a numpy table; a tensor gives a tensor on its device, computed
+    there with no copy to the host and no synchronisation.
+    """
+    if isinstance(basis, torch.Tensor):
+        nz = basis != 0
+        n_bins = nz.shape[1]
+        lo = nz.to(torch.uint8).argmax(dim=1)                  # the first of equal maxima
+        hi = n_bins - nz.flip(1).to(torch.uint8).argmax(dim=1)
+        bands = torch.stack([lo, hi], dim=1) * nz.any(dim=1, keepdim=True)
+        return bands.to(torch.int32)
+    nz = np.asarray(basis) != 0
+    lo = nz.argmax(axis=1)
+    hi = nz.shape[1] - nz[:, ::-1].argmax(axis=1)
+    return (np.stack([lo, hi], axis=1) * nz.any(axis=1, keepdims=True)).astype(np.int32)
 
 
 def _table(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -153,7 +248,7 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.stft_mel_launch
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i64, i64, i64, i32, i32, i64, i32, i32, i32,
+        fn.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i64, i32, i32, i32,
                        ctypes.c_float, i32, p]
         fn.restype = ctypes.c_int
     return lib
@@ -176,12 +271,18 @@ def stft_mel_fused(
     ``(n_fft,)`` and ``basis`` ``(n_out, 1 + n_fft // 2)``, numpy or tensors.
     On a CUDA tensor this launches the kernel where :func:`kernel_refusal`
     gives no reason, and raises with that reason otherwise; on a CPU tensor
-    it returns :func:`stft_mel_reference`. The kernel reads the basis by
-    column: a float32 basis on ``y``'s device that is already column-major
-    (the transpose of a contiguous ``(n_bins, n_out)`` tensor, as
-    ``feature.melspectrogram`` keeps its mel basis) is read in place, any
-    other is transposed into a copy first.
+    it returns :func:`stft_mel_reference`. The kernel walks each basis row
+    over its band of nonzeros (:func:`basis_bands`, computed on the card
+    without a synchronisation); a float32 row-major basis on ``y``'s device
+    is read in place, any other is copied first.
     """
+    return _fused(y, window, basis, None, n_fft=n_fft, hop_length=hop_length, power=power,
+                  center=center, pad_mode=pad_mode)
+
+
+def _fused(y: Any, window: Any, basis: Any, bands: Optional[torch.Tensor], *, n_fft: int,
+           hop_length: int, power: float, center: bool, pad_mode: str) -> torch.Tensor:
+    """:func:`stft_mel_fused` with the basis's band table given (``None``: derived here)."""
     global launches
     y = as_tensor(y)
     if y.device.type == "cpu":
@@ -198,16 +299,21 @@ def stft_mel_fused(
                                     center=center, pad_mode=pad_mode)
     y2 = y.reshape(-1, sig_len).contiguous()
     win = _table(window, device, torch.float32).contiguous()
-    basis_t = _table(basis, device, torch.float32).t().contiguous()  # no copy if column-major
+    bas = _table(basis, device, torch.float32).contiguous()
     twiddle = device_table(("twiddle", n_fft), lambda: _twiddles(n_fft), device,
                            torch.float32)
     if tuple(win.shape) != (n_fft,):
         raise ParameterError(f"window has shape {tuple(win.shape)}, expected ({n_fft},)")
-    if basis_t.ndim != 2 or basis_t.shape[0] != n_fft // 2 + 1:
+    if bas.ndim != 2 or bas.shape[1] != n_fft // 2 + 1:
         raise ParameterError(
-            f"basis has shape {tuple(basis_t.t().shape)}, expected (n_out, {n_fft // 2 + 1})"
+            f"basis has shape {tuple(bas.shape)}, expected (n_out, {n_fft // 2 + 1})"
         )
-    n_out = basis_t.shape[1]
+    n_out = bas.shape[0]
+    if bands is None:
+        bands = basis_bands(bas)
+    bands = bands.to(device=device, dtype=torch.int32).contiguous()
+    if tuple(bands.shape) != (n_out, 2):
+        raise ParameterError(f"bands has shape {tuple(bands.shape)}, expected ({n_out}, 2)")
     out = torch.empty((y2.shape[0], n_out, n_frames), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out.reshape(*lead, n_out, n_frames)
@@ -216,9 +322,9 @@ def stft_mel_fused(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.stft_mel_launch(
-            y2.data_ptr(), win.data_ptr(), twiddle.data_ptr(), basis_t.data_ptr(),
-            out.data_ptr(), y2.shape[0], sig_len, n_frames, n_fft, hop_length, lpad,
-            int(pad_mode == "reflect" and center), n_out, tt, float(power),
+            y2.data_ptr(), win.data_ptr(), twiddle.data_ptr(), bas.data_ptr(),
+            bands.data_ptr(), out.data_ptr(), y2.shape[0], sig_len, n_frames, n_fft,
+            hop_length, lpad, int(pad_mode == "reflect" and center), n_out, tt, float(power),
             _smem_bytes(n_fft, hop_length, tt), stream,
         )
     if err != 0:

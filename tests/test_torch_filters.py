@@ -76,14 +76,19 @@ def test_dct_matrix_matches_jax(dct_type, norm):
 
 
 def test_mel_device_table_is_jax_mel_column_major():
-    # the cached device basis holds the same values, laid out as the kernel reads it
-    basis = _mel_device(SR, 512, torch.device("cpu"), torch.float32, n_mels=40)
-    assert basis.shape == (40, 257) and basis.stride() == (1, 40)
-    assert basis.t().is_contiguous()
-    np.testing.assert_allclose(basis.numpy(), lt.filters.mel(sr=SR, n_fft=512, n_mels=40),
-                               rtol=1e-6, atol=1e-8)
-    assert _mel_device(SR, 512, torch.device("cpu"), torch.float32, n_mels=40).t() \
-        .data_ptr() == basis.t().data_ptr()  # made and uploaded once
+    # (named for the first kernel's column-major table) the cached device basis holds
+    # the same values, row-major as the kernel walks its bands, beside its band table
+    basis, bands = _mel_device(SR, 512, torch.device("cpu"), torch.float32, n_mels=40)
+    assert basis.shape == (40, 257) and basis.is_contiguous()
+    want = lt.filters.mel(sr=SR, n_fft=512, n_mels=40)
+    np.testing.assert_allclose(basis.numpy(), want, rtol=1e-6, atol=1e-8)
+    assert bands.dtype == torch.int32 and bands.shape == (40, 2)
+    for row, (lo, hi) in zip(np.asarray(want), bands.tolist()):
+        nz = np.flatnonzero(row)
+        assert (lo, hi) == (nz[0], nz[-1] + 1)
+    again = _mel_device(SR, 512, torch.device("cpu"), torch.float32, n_mels=40)
+    assert again[0].data_ptr() == basis.data_ptr()  # made and uploaded once
+    assert again[1].data_ptr() == bands.data_ptr()
 
 
 @pytest.mark.parametrize("htk", [False, True])

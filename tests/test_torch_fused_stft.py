@@ -4,7 +4,9 @@ Both get the same numpy inputs, made from a seed. The JAX kernel runs in
 interpret mode on the CPU, as tests/test_pallas_stft.py runs it; the port's
 ``stft_mel_fused`` gets CPU tensors, so it runs its plain PyTorch version
 (the CUDA kernel is checked against that version on the card by
-chip_smoke.py).
+chip_smoke.py). The kernel's index math that lives in Python (band tables,
+FFT plan, exchange layout, twiddle tables, shared-memory sizes) is checked
+here by emulation.
 """
 
 import numpy as np
@@ -173,3 +175,189 @@ def test_short_input_raises():
     with pytest.raises(L.ParameterError):
         fused_stft.stft_mel_fused(torch.zeros(100), np.hanning(512), np.eye(257),
                                   n_fft=512, hop_length=128, center=False)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's index math, which the CPU can check without the kernel
+# ---------------------------------------------------------------------------
+
+
+def _first_and_last(n_bins, rows=5):
+    b = np.zeros((rows, n_bins), np.float32)
+    b[:, 0], b[:, -1] = 1.0, 2.0
+    b[2] = np.linspace(0.5, 1.5, n_bins)
+    return b
+
+
+def _zero_rows(n_fft, n_mels=40):
+    b = lt.filters.mel(sr=SR, n_fft=n_fft, n_mels=n_mels).astype(np.float32)
+    b[[0, 7, n_mels - 1]] = 0.0
+    return b
+
+
+BASES = {
+    "mel64": lambda: lt.filters.mel(sr=SR, n_fft=512, n_mels=64),
+    "mel128": lambda: lt.filters.mel(sr=SR, n_fft=2048, n_mels=128),
+    "chroma": lambda: lt.filters.chroma(sr=SR, n_fft=512),
+    "identity": lambda: np.eye(257),
+    "dense": lambda: np.random.RandomState(5).rand(12, 257) + 0.1,
+    "zero_rows": lambda: _zero_rows(512),
+    "first_and_last": lambda: _first_and_last(257),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BASES))
+def test_basis_bands_match_a_scan(name):
+    basis = np.asarray(BASES[name](), dtype=np.float32)
+    want = np.zeros((basis.shape[0], 2), np.int32)
+    for m, row in enumerate(basis):  # brute force: first and one-past-last nonzero
+        cols = [k for k, v in enumerate(row) if v != 0]
+        if cols:
+            want[m] = cols[0], cols[-1] + 1
+    from_numpy = fused_stft.basis_bands(basis)
+    from_tensor = fused_stft.basis_bands(torch.from_numpy(basis))
+    assert isinstance(from_numpy, np.ndarray) and from_numpy.dtype == np.int32
+    assert isinstance(from_tensor, torch.Tensor) and from_tensor.dtype == torch.int32
+    np.testing.assert_array_equal(from_numpy, want)
+    np.testing.assert_array_equal(from_tensor.numpy(), want)
+    if name == "zero_rows":
+        assert (want[[0, 7, 39]] == 0).all() and (want[1] != 0).any()
+    if name == "first_and_last":
+        assert (want == [0, 257]).all()
+    if name == "identity":
+        assert (want[:, 1] - want[:, 0] == 1).all()
+
+
+N_FFTS = [1 << b for b in range(6, 14)]
+
+
+def _snr_complex(got, want):
+    err = np.sum(np.abs(got - want) ** 2)
+    return 10 * np.log10(np.sum(np.abs(want) ** 2) / max(err, 1e-300))
+
+
+def _unpack(Z, n_fft):
+    """Bins 0..n_fft/2 from the half-length transform, with the kernel's float32 table."""
+    half, quarter = n_fft // 2, n_fft // 4
+    table = torch.from_numpy(fused_stft._twiddles(n_fft)[-2 * (quarter + 1):])
+    w = torch.complex(table[:quarter + 1], table[quarter + 1:])   # exp(-2 pi i k / n_fft)
+    k = torch.arange(1, quarter + 1)
+    z, y = Z[..., k], Z[..., half - k].conj()
+    a, b = 0.5 * (z + y), 0.5 * (z - y)
+    c = w[k] * b
+    X = torch.zeros(Z.shape[:-1] + (half + 1,), dtype=Z.dtype)
+    X[..., k] = a - 1j * c
+    X[..., half - k] = (a + 1j * c).conj()       # k = n_fft/4 writes its own bin twice, alike
+    X[..., 0] = Z[..., 0].real + Z[..., 0].imag
+    X[..., half] = Z[..., 0].real - Z[..., 0].imag
+    return X
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+def test_half_length_pack_unpack_matches_rfft(n_fft):
+    # the real frame as n_fft/2 complex points, transformed in float32, unpacked with
+    # the kernel's own table, against the float64 rfft
+    rng = np.random.RandomState(n_fft)
+    x = torch.from_numpy(rng.randn(4, n_fft).astype(np.float32))
+    z = torch.complex(x[:, 0::2], x[:, 1::2])
+    X = _unpack(torch.fft.fft(z), n_fft)
+    assert X.dtype == torch.complex64
+    want = torch.fft.rfft(x.double())
+    assert _snr_complex(X.numpy().astype(np.complex128), want.numpy()) >= 130.0
+
+
+def _bit_reverse(x, bits):
+    return int(format(x, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _kernel_fft(z, n_fft):
+    """The kernel's FFT of n_fft/2 complex points, thread for thread.
+
+    Thread ``lt`` of a frame's ``T`` holds elements ``lt + s*T``; a pass
+    multiplies by its table's twiddles, runs radix-R transforms on the
+    registers (outputs in bit-reversed registers) and stores through the
+    padded exchange layout. float64 arithmetic on the float32 tables.
+    Returns the spectrum and the largest number of lanes of one warp that
+    met in one shared-memory bank.
+    """
+    half = n_fft // 2
+    points, radices = fused_stft._fft_plan(n_fft)
+    pads = fused_stft._exchange_pads(n_fft)
+    table = fused_stft._twiddles(n_fft).astype(np.float64)
+    T = half // points
+    lt_ = np.arange(T)
+    regs = np.stack([z[lt_ + s * T] for s in range(points)]).astype(np.complex128)
+    buf = np.full(fused_stft._frame_floats(n_fft) // 2, np.nan, np.complex128)
+    worst, p, off = 1, 1, 0
+
+    def lanes_per_bank(addr):
+        most = 1
+        for w0 in range(0, len(addr), 32):
+            banks = np.unique(addr[w0:w0 + 32]) % 32      # equal addresses broadcast
+            most = max(most, np.bincount(banks).max())
+        return most
+
+    for i, R in enumerate(radices):
+        B, bits = points // R, R.bit_length() - 1
+        if i > 0:
+            n = (R - 1) * p
+            for q in range(B):
+                k = (lt_ + q * T) & (p - 1)
+                for r in range(1, R):
+                    idx = off + (r - 1) * p + k
+                    worst = max(worst, lanes_per_bank(idx))
+                    regs[q + r * B] *= table[idx] + 1j * table[idx + n]
+            off += 2 * n
+        for q in range(B):                                  # radix-R transform of registers q + r*B
+            v = regs[q::B].copy()
+            regs[q::B] = np.fft.fft(v, axis=0)[[_bit_reverse(r, bits) for r in range(R)]]
+        last = i == len(radices) - 1
+        pad, unit = (0, 32) if last else pads[i]
+        for q in range(B):
+            bi = lt_ + q * T
+            k = bi & (p - 1)
+            for r in range(R):
+                a = bi + r * B * T if last else (bi - k) * R + k + r * p
+                a = a + pad * (a // unit)
+                worst = max(worst, lanes_per_bank(a))
+                buf[a] = regs[q + _bit_reverse(r, bits) * B]
+        if not last:
+            for s in range(points):
+                a = lt_ + s * T
+                a = a + pad * (a // unit)
+                worst = max(worst, lanes_per_bank(a))
+                regs[s] = buf[a]
+        p *= R
+    assert off + 2 * (n_fft // 4 + 1) == len(table)
+    return buf[:half], worst
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+def test_fft_plan_exchange_and_twiddles(n_fft):
+    points, radices = fused_stft._fft_plan(n_fft)
+    assert int(np.prod(radices)) == n_fft // 2 and max(radices) <= points
+    assert 1 <= n_fft // 2 // points <= 256   # a frame's threads fit in one block
+    rng = np.random.RandomState(n_fft + 1)
+    z = rng.randn(n_fft // 2) + 1j * rng.randn(n_fft // 2)
+    Z, lanes = _kernel_fft(z, n_fft)
+    assert _snr_complex(Z, np.fft.fft(z)) >= 130.0
+    assert lanes == 1                       # no two lanes of a warp in one bank, tables included
+    X = _unpack(torch.from_numpy(Z), n_fft)  # and on through the unpacking, in float64
+    x = np.empty(n_fft)
+    x[0::2], x[1::2] = z.real, z.imag
+    assert _snr_complex(X.numpy(), np.fft.rfft(x)) >= 130.0
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+def test_tile_fits_shared_memory_over_the_support_set(n_fft):
+    for hop in range(1, n_fft + 1):
+        assert fused_stft.fused_supported(n_fft, hop)
+        tt = fused_stft._tile_frames(n_fft, hop)
+        assert tt in (1, 2, 4, 8)
+        assert fused_stft._smem_bytes(n_fft, hop, tt) <= 232448
+        # whole frames on every thread of a block, and whole warps
+        threads = min(256, tt * (n_fft // 2 // fused_stft._fft_plan(n_fft)[0]))
+        assert threads % 32 == 0 and threads % (n_fft // 2 // fused_stft._fft_plan(n_fft)[0]) == 0
+    if n_fft == 2048:  # the main path: 8 frames a block, two blocks an SM
+        assert fused_stft._tile_frames(2048, 512) == 8
+        assert 2 * (fused_stft._smem_bytes(2048, 512, 8) + 1024) <= 233472

@@ -149,8 +149,7 @@ def test_float32_routes_to_fused_and_float64_to_plain(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(port_spectrum, "stft_mel_fused",
-                        spy("fused", fused_stft.stft_mel_fused))
+    monkeypatch.setattr(port_spectrum, "_fused", spy("fused", fused_stft._fused))
     monkeypatch.setattr(port_spectrum, "stft_mel_reference",
                         spy("plain", fused_stft.stft_mel_reference))
     y = _signal(SR, seed=8)

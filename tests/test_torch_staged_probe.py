@@ -209,6 +209,17 @@ def test_case_byte_counts(inputs):
     assert kitchen.read_bytes == 4 * ((2 * 128 + 144) * 512 + 2 * 144 * 512 + 184864)
 
 
+@pytest.mark.parametrize("name", ["m_out", "m_edge", "m_kitchen"])
+def test_bound_counts_an_output_beyond_l2(inputs, name):
+    # reads L2-resident, but 268 MB of output must reach HBM: the writes alone bound it
+    case = dma_bisect.make_case(name, inputs)
+    assert case.l2_resident and case.written_bytes == 128 * 4096 * 128 * 4
+    assert case.bound_ms == pytest.approx(1e3 * case.written_bytes / 3.35e12)
+    assert 0.079 < case.bound_ms < 0.081
+    small = dma_bisect.make_case(name, inputs, n_tiles=N_TILES)   # a few tiles: all in L2
+    assert small.l2_resident and small.bound_ms is None
+
+
 def test_scale_bound_counts_unique_reads_and_writes():
     inputs = dma_bisect.Inputs("cpu", scale_rows=torch.zeros(dma_bisect.SCALE_ROWS * 512))
     case = dma_bisect.make_case("scale_pre2d", inputs)
