@@ -15,6 +15,15 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    kernel carried it and that the output is right;
 4. times the kernel, its plain version, a torch.stft + matmul yardstick,
    the end-to-end path and its dB and MFCC steps, with the roofline bound;
+4a. holds the dB kernel (``csrc/db_scale.cu``) against its plain version on
+   NaN-filled memory at the main shape and at ragged ones, checks that the
+   peak is exactly 0 dB with ``ref=max``, and times both beside the bound;
+4b. drives the feature stack (``entry.feature_stack()``: mfcc, chroma_stft,
+   spectral_centroid, spectral_rolloff, each from ``y``) on the same
+   buffer, checks that it launched the mel kernel four times and the dB
+   kernel once and that each output agrees with float64 numpy, and times
+   it end to end, the mel kernel with the chroma and the identity basis,
+   and the centroid and roll-off tails alone;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024;
@@ -47,6 +56,10 @@ MAIN_SHAPE = (16, 1 << 22)
 MIN_SNR_DB = 115.0        # goldens' melspectrogram tolerance (power 2 and others)
 MIN_SNR_POWER1_DB = 110.0  # |.| (power 1): sqrt near zero bins loses ~5 dB
 MIN_MFCC_SNR_DB = 105.0   # goldens' mfcc tolerance
+MIN_CHROMA_SNR_DB = 115.0  # the chroma projection is the mel kernel with another basis
+MIN_CENTROID_SNR_DB = 100.0  # a ratio of two sums over |.| (power 1) spectra
+MIN_ROLLOFF_EQUAL = 0.999  # share of frames on the float64 bin; the rest one bin off
+DB_ATOL = 1e-4            # dB: kernel and plain take the same float32 steps
 
 # H100 SXM datasheet (dense): HBM bytes/s and float32 CUDA-core FLOP/s
 H100_HBM_BYTES_S = 3.35e12
@@ -65,14 +78,19 @@ def snr_db(got, want) -> float:
     return float(10 * np.log10(np.sum(want**2) / max(err, 1e-300)))
 
 
-def mel64(y, window, basis, *, n_fft, hop, power=2.0, center=True, pad_mode="constant"):
-    """|STFT|**power @ basis.T in float64 numpy, as (n_out, T)."""
+def spec64(y, window, *, n_fft, hop, center=True, pad_mode="constant"):
+    """|STFT| in float64 numpy, as (1 + n_fft // 2, T)."""
     y = np.asarray(y, dtype=np.float64)
     if center:
         y = np.pad(y, n_fft // 2, mode=pad_mode)
     frames = np.lib.stride_tricks.sliding_window_view(y, n_fft)[::hop]
-    spec = np.abs(np.fft.rfft(frames * np.asarray(window, np.float64), axis=-1))
-    return np.asarray(basis, np.float64) @ (spec**power).T
+    return np.abs(np.fft.rfft(frames * np.asarray(window, np.float64), axis=-1)).T
+
+
+def mel64(y, window, basis, *, n_fft, hop, power=2.0, center=True, pad_mode="constant"):
+    """|STFT|**power @ basis.T in float64 numpy, as (n_out, T)."""
+    spec = spec64(y, window, n_fft=n_fft, hop=hop, center=center, pad_mode=pad_mode)
+    return np.asarray(basis, np.float64) @ spec**power
 
 
 def mfcc64(mel, n_mfcc=20):
@@ -355,6 +373,237 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
     ]
 
 
+def db_cases(torch, rng, device, mel):
+    """(label, fn name, S, kwargs): the main shape and ragged ones for the dB kernel."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+    power = lambda *shape: rng.randn(*shape) ** 2  # noqa: E731
+    zeros = power(3, 64, 50)
+    zeros[1] = 0.0
+    tiny = power(2, 40, 31) * 1e-12
+    tiny[0, :5] = 1e-14
+    unaligned = t(power(4 * 300 + 1))[1:]   # N % 4 == 0 behind a 4-byte offset
+    return [
+        ("main shape, ref 1", "power_to_db", mel, {}),
+        ("main shape, ref max", "power_to_db", mel, dict(ref=np.max)),
+        ("main shape, whole array", "power_to_db", mel, dict(ref=np.max, axes=None)),
+        ("1-d of 1001", "power_to_db", t(power(1001)), dict(ref=np.max)),
+        ("1-d of 1200 off a 16-byte boundary", "power_to_db", unaligned, dict(ref=np.max)),
+        ("one channel of 37 x 53", "power_to_db", t(power(1, 37, 53)), {}),
+        ("a channel of zeros", "power_to_db", t(zeros), dict(ref=np.max)),
+        ("values below amin", "power_to_db", t(tiny), dict(ref=np.max, top_db=30.0)),
+        ("top_db None", "power_to_db", t(power(2, 3, 16, 33)), dict(top_db=None)),
+        ("ref 0.5, amin 1e-6, top_db 40", "power_to_db", t(power(5, 128, 60)),
+         dict(ref=0.5, amin=1e-6, top_db=40.0)),
+        ("amplitude_to_db, ref 1", "amplitude_to_db", t(rng.randn(4, 128, 61)), {}),
+        ("amplitude_to_db, ref max, top_db 60", "amplitude_to_db", t(rng.randn(2, 1025, 44)),
+         dict(ref=np.max, top_db=60.0)),
+        ("amplitude_to_db, ref 3", "amplitude_to_db", t(rng.randn(3000)), dict(ref=3.0)),
+    ]
+
+
+def db_kernel_phase(torch, L, rng, device, mel) -> dict:
+    """Phase 4a: the dB kernel against its plain version, then timed. Its JSON entry, less launches."""
+    from librosa_tpu_torch.core.spectrum import _db_axes
+    from librosa_tpu_torch.ops import db_scale
+
+    worst = 0.0
+    cases = db_cases(torch, rng, device, mel)
+    for label, fn, S, kw in cases:
+        before = db_scale.launches
+        poison(torch, tuple(S.shape), device)
+        got = getattr(L, fn)(S, **kw)
+        if db_scale.launches != before + 1:
+            raise AssertionError(f"dB {label}: {fn} did not launch the db_scale kernel")
+        full = dict(dict(ref=1.0, amin=1e-5 if fn == "amplitude_to_db" else 1e-10, top_db=80.0),
+                    **kw)
+        axes = _db_axes(S.ndim, full.pop("axes", "auto"))
+        want = db_scale.db_scale_reference(S, axes=axes, amplitude=fn == "amplitude_to_db",
+                                           **full)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"dB {label}: {int((~torch.isfinite(got)).sum())} of "
+                                 f"{got.numel()} values unwritten or not finite")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        note = "bit-equal" if torch.equal(got, want) else "not bit-equal"
+        if full["ref"] is np.max:
+            dims = None if axes is None else tuple(axes)
+            peak = got.amax() if dims is None else got.amax(dim=dims)
+            if not bool((peak == 0).all()):
+                raise AssertionError(f"dB {label}: the peak is not exactly 0 dB with ref=max: "
+                                     f"{peak.flatten()[:4].tolist()}")
+            note += ", peak exactly 0 dB"
+        print(f"dB kernel vs plain  {label} {tuple(S.shape)}: max |err| {err:.3e} dB ({note})")
+        if not err <= DB_ATOL:
+            raise AssertionError(f"dB kernel vs plain {label}: {err:.3e} dB > {DB_ATOL}")
+    print(f"dB kernel vs plain: {len(cases)} cases passed, each on NaN-filled memory, "
+          f"atol {DB_ATOL} dB")
+
+    axes = (-2, -1)
+    kw = dict(ref=1.0, amin=1e-10, top_db=80.0, axes=axes)
+    ms = time_ms(torch, lambda: db_scale.db_scale(mel, **kw), 20)
+    ms_max = time_ms(torch, lambda: db_scale.db_scale(mel, **dict(kw, ref=np.max)), 20)
+    plain_ms = time_ms(torch, lambda: db_scale.db_scale_reference(mel, **kw), 5)
+    channels, n, parts = db_scale.launch_geometry(mel, axes)
+    # the function reads its input once and writes its output once; a kernel whose input
+    # exceeds the L2 cache must read it a second time after the peak is known
+    bound_ms = 1e3 * 8 * mel.numel() / H100_HBM_BYTES_S
+    two_pass_ms = 1e3 * 12 * mel.numel() / H100_HBM_BYTES_S
+    print(f"db_scale kernel on {tuple(mel.shape)} ({channels} channels of {n}, {parts} parts "
+          f"each): {ms:.4f} ms (ref max {ms_max:.4f} ms), plain torch ops {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms (bytes: {8 * mel.numel()} read and written once; "
+          f"{two_pass_ms:.4f} ms for the {12 * mel.numel()} bytes of two reads and a write)")
+    return {
+        "name": "db_scale",
+        "route": "cuda",
+        "source": "librosa_tpu_torch/csrc/db_scale.cu",
+        "replaces": "librosa_tpu/core/spectrum.py:752 _db_maxref_core (an XLA program: no "
+                    "Pallas kernel computes this step)",
+        "max_abs_err": worst,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "two_pass_bound_ms": two_pass_ms,
+    }
+
+
+def features64(y, window, mel_basis, chroma_basis, *, n_fft, hop):
+    """(mfcc, chroma, centroid, roll-off bin) of one track in float64 numpy."""
+    spec = spec64(y, window, n_fft=n_fft, hop=hop)
+    mfcc = mfcc64(np.asarray(mel_basis, np.float64) @ spec**2)
+    chroma = np.asarray(chroma_basis, np.float64) @ spec**2
+    chroma = chroma / np.maximum(chroma.max(axis=0, keepdims=True), np.finfo(np.float32).tiny)
+    freq = np.fft.rfftfreq(n_fft, 1.0 / SR)
+    centroid = (freq[:, None] * spec).sum(axis=0, keepdims=True) / spec.sum(axis=0, keepdims=True)
+    total = np.cumsum(spec, axis=0)
+    roll_bin = (total < 0.85 * total[-1:]).sum(axis=0)  # the first bin at or above the threshold
+    return mfcc, chroma, centroid, roll_bin
+
+
+def feature_stack_phase(torch, L, device, y, win, mel_basis, k1_ms: float) -> dict:
+    """Phase 4b: the feature stack driven, checked against float64 and timed; its launch counts."""
+    from librosa_tpu_torch.core import spectrum
+    from librosa_tpu_torch.entry import feature_stack
+    from librosa_tpu_torch.feature import spectral
+    from librosa_tpu_torch.ops import db_scale, fused_stft
+
+    n_fft, hop = MAIN["n_fft"], MAIN["hop_length"]
+    n_frames = 1 + MAIN_SHAPE[1] // hop
+    forward, _ = feature_stack()
+    fused_stft.launches = 0
+    db_scale.launches = 0
+    mfcc, chroma, centroid, rolloff = forward(y)
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches}
+    print(f"feature stack: y {tuple(y.shape)} -> mfcc {tuple(mfcc.shape)}, chroma "
+          f"{tuple(chroma.shape)}, centroid {tuple(centroid.shape)}, rolloff "
+          f"{tuple(rolloff.shape)}; launches {counts}")
+    if counts != {"stft_mel": 4, "db_scale": 1}:
+        raise AssertionError(f"the feature stack launched {counts}, expected 4 and 1")
+    for name, out, rows in (("mfcc", mfcc, 20), ("chroma", chroma, 12),
+                            ("centroid", centroid, 1), ("rolloff", rolloff, 1)):
+        if tuple(out.shape) != (MAIN_SHAPE[0], rows, n_frames):
+            raise AssertionError(f"feature stack {name} shape {tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"feature stack {name} has non-finite values")
+
+    chroma_basis = L.filters.chroma(sr=SR, n_fft=n_fft, tuning=0.0, n_chroma=12)
+    bin_hz = SR / n_fft
+    for track in (0, MAIN_SHAPE[0] - 1):
+        want = features64(y[track].cpu().numpy(), win, mel_basis, chroma_basis, n_fft=n_fft,
+                          hop=hop)
+        snrs = [snr_db(got[track].cpu().numpy(), ref)
+                for got, ref in zip((mfcc, chroma, centroid), want)]
+        got_bin = np.rint(rolloff[track, 0].cpu().numpy().astype(np.float64) / bin_hz)
+        off = np.abs(got_bin - want[3])
+        equal = float((off == 0).mean())
+        print(f"feature stack track {track} vs float64 numpy: mfcc {snrs[0]:.1f} dB, chroma "
+              f"{snrs[1]:.1f} dB, centroid {snrs[2]:.1f} dB, rolloff on the float64 bin in "
+              f"{100 * equal:.3f} % of {off.size} frames, at most {int(off.max())} bins off")
+        for name, s, floor in zip(("mfcc", "chroma", "centroid"), snrs,
+                                  (MIN_MFCC_SNR_DB, MIN_CHROMA_SNR_DB, MIN_CENTROID_SNR_DB)):
+            if not s >= floor:
+                raise AssertionError(f"feature stack {name}, track {track}: {s:.1f} dB < {floor}")
+        if not (equal >= MIN_ROLLOFF_EQUAL and off.max() <= 1):
+            raise AssertionError(f"feature stack rolloff, track {track}: {100 * equal:.3f} % "
+                                 f"equal, {int(off.max())} bins off at most")
+    del mfcc, chroma, centroid, rolloff
+
+    # the mel kernel with its two other bases at the main shape, against their plain versions
+    win_d = torch.from_numpy(win.astype(np.float32)).to(device)
+    kw = dict(n_fft=n_fft, hop_length=hop, center=True, pad_mode="constant")
+    chroma_d, chroma_bands = spectral._basis_device(
+        L.filters.chroma, SR, n_fft, device, torch.float32, tuning=0.0, n_chroma=12)
+    eye_d, eye_bands = spectrum._eye_device(n_fft, device)
+    times = {}
+    for label, basis, bands, power, floor, plain in (
+        ("chroma", chroma_d, chroma_bands, 2.0, MIN_SNR_DB,
+         lambda: fused_stft.stft_mel_reference(y, win_d, chroma_d, power=2.0, **kw)),
+        ("identity", eye_d, eye_bands, 1.0, MIN_SNR_POWER1_DB,
+         lambda: spectrum._stft_power_core(y, win_d, power=1.0, **kw)),
+    ):
+        poison(torch, (MAIN_SHAPE[0], basis.shape[0], n_frames), device)
+        got = fused_stft._fused(y, win_d, basis, bands, power=power, **kw)
+        want = plain()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"stft_mel with the {label} basis left values unwritten")
+        err = (got - want).double().square().sum(dim=(-2, -1))
+        sig = want.double().square().sum(dim=(-2, -1))
+        worst = float((10 * torch.log10(sig / err.clamp(min=1e-300))).min())
+        max_err = float((got - want).abs().max())
+        del got, want, err, sig
+        ms = time_ms(torch, lambda: fused_stft._fused(y, win_d, basis, bands, power=power,
+                                                      **kw), 10)
+        plain_ms = time_ms(torch, plain, 3)
+        frames = MAIN_SHAPE[0] * n_frames
+        out_bytes = 4 * basis.shape[0] * frames
+        bytes_ms = 1e3 * (4 * y.numel() + out_bytes) / H100_HBM_BYTES_S
+        ops_ms = 1e3 * (fused_stft.flops_per_frame(n_fft, int(torch.count_nonzero(basis)))
+                        * frames / H100_F32_FLOP_S)
+        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                            snr_db=worst, max_abs_err=max_err)
+        print(f"stft_mel with the {label} basis ({basis.shape[0]} rows, power {power:g}) at the "
+              f"main shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f} ms with an output of "
+              f"{out_bytes} bytes, operations {ops_ms:.4f} ms); per track at least "
+              f"{worst:.1f} dB against plain (floor {floor}), max |err| {max_err:.3e}")
+        if not worst >= floor:
+            raise AssertionError(f"stft_mel with the {label} basis: {worst:.1f} dB < {floor}")
+
+    # the tails alone, on the identity kernel's output
+    S = fused_stft._fused(y, win_d, eye_d, eye_bands, power=1.0, **kw)
+    freq = spectral._bin_frequencies(None, SR, n_fft, S)
+    centroid_ms = time_ms(torch, lambda: spectral._centroid_core(S, freq), 3)
+    rolloff_ms = time_ms(torch, lambda: spectral._rolloff_core(S, freq, roll_percent=0.85), 3)
+    del S
+    raw = fused_stft._fused(y, win_d, chroma_d, chroma_bands, power=2.0, **kw)
+    norm_ms = time_ms(torch, lambda: L.util.normalize(raw, norm=np.inf, axis=-2), 5)
+    del raw
+    e2e_ms = time_ms(torch, lambda: forward(y), 3)
+    parts = {"mfcc": lambda: L.feature.mfcc(y=y, sr=SR, n_mfcc=20, **MAIN),
+             "chroma_stft": lambda: L.feature.chroma_stft(y=y, sr=SR, tuning=0.0, n_fft=n_fft,
+                                                          hop_length=hop),
+             "spectral_centroid": lambda: L.feature.spectral_centroid(y=y, sr=SR, n_fft=n_fft,
+                                                                      hop_length=hop),
+             "spectral_rolloff": lambda: L.feature.spectral_rolloff(y=y, sr=SR, n_fft=n_fft,
+                                                                    hop_length=hop)}
+    part_ms = {name: time_ms(torch, fn, 3) for name, fn in parts.items()}
+    samples = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    print(f"feature stack end to end: {e2e_ms:.4f} ms, {samples / (e2e_ms / 1e3):.6e} samples/s "
+          f"on {MAIN_SHAPE}; its four calls alone: "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in part_ms.items()))
+    print(f"feature stack tails alone: centroid from |STFT| {centroid_ms:.4f} ms, rolloff from "
+          f"|STFT| {rolloff_ms:.4f} ms, chroma normalisation {norm_ms:.4f} ms; stft_mel with "
+          f"the mel basis {k1_ms:.4f} ms in this run")
+    return {"launches": counts, "bases": times}
+
+
 def main() -> int:
     import torch
 
@@ -363,7 +612,7 @@ def main() -> int:
         return 2
     import librosa_tpu_torch as L
     from librosa_tpu_torch.entry import entry
-    from librosa_tpu_torch.ops import _build, fused_stft
+    from librosa_tpu_torch.ops import _build, db_scale, fused_stft
 
     device = torch.device("cuda")
     L.set_device(device)
@@ -418,14 +667,18 @@ def main() -> int:
         return M, L.feature.mfcc(S=L.power_to_db(M), n_mfcc=20)
 
     fused_stft.launches = 0
+    db_scale.launches = 0
     M, C = main_path(y)
     torch.cuda.synchronize()
     main_launches = fused_stft.launches
+    main_db_launches = db_scale.launches
     n_frames = 1 + MAIN_SHAPE[1] // MAIN["hop_length"]
     print(f"main path: y {tuple(y.shape)} -> mel {tuple(M.shape)} -> mfcc {tuple(C.shape)}, "
-          f"stft_mel launches {main_launches}")
+          f"stft_mel launches {main_launches}, db_scale launches {main_db_launches}")
     if main_launches < 1:
         raise AssertionError("the main path did not launch the stft_mel kernel")
+    if main_db_launches < 1:
+        raise AssertionError("the main path did not launch the db_scale kernel")
     if tuple(M.shape) != (MAIN_SHAPE[0], MAIN["n_mels"], n_frames):
         raise AssertionError(f"mel shape {tuple(M.shape)}")
     if tuple(C.shape) != (MAIN_SHAPE[0], 20, n_frames):
@@ -495,7 +748,7 @@ def main() -> int:
     db_ms = time_ms(torch, lambda: L.power_to_db(db_in), 5)
     mfcc_in = L.power_to_db(db_in)
     mfcc_ms = time_ms(torch, lambda: L.feature.mfcc(S=mfcc_in, n_mfcc=20), 5)
-    del db_in, mfcc_in
+    del mfcc_in
     samples = MAIN_SHAPE[0] * MAIN_SHAPE[1]
     frames = MAIN_SHAPE[0] * n_frames
 
@@ -522,13 +775,19 @@ def main() -> int:
           f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms; H100 SXM datasheet)")
     print(f"stft_mel with the band table derived on the card per call: {derived_ms:.4f} ms")
     print(f"end to end mel -> dB -> mfcc: {e2e_ms:.4f} ms, {samples / (e2e_ms / 1e3):.6e} samples/s "
-          f"on {MAIN_SHAPE}; alone, power_to_db {db_ms:.4f} ms, mfcc (DCT) {mfcc_ms:.4f} ms")
+          f"on {MAIN_SHAPE}, with the db_scale kernel in it; alone, power_to_db {db_ms:.4f} ms, "
+          f"mfcc (DCT) {mfcc_ms:.4f} ms")
+    db_entry = db_kernel_phase(torch, L, rng, device, db_in)
+    del db_in
+    stack = feature_stack_phase(torch, L, device, y, win, mel_basis, kernel_ms)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
         "source": "librosa_tpu_torch/csrc/stft_mel.cu",
         "replaces": "librosa_tpu/ops/pallas_stft.py:487",
-        "launches": main_launches,
+        "launches": main_launches + stack["launches"]["stft_mel"],
+        "launches_by_path": {"mel_db_mfcc": main_launches,
+                             "feature_stack": stack["launches"]["stft_mel"]},
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -537,9 +796,13 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "snr_db": main_snr,
+        "other_bases": stack["bases"],
     }
+    db_entry["launches"] = main_db_launches + stack["launches"]["db_scale"]
+    db_entry["launches_by_path"] = {"mel_db_mfcc": main_db_launches,
+                                    "feature_stack": stack["launches"]["db_scale"]}
     diag_entries = staged_diagnostics(torch, device, y, kernel_ms)
-    print(json.dumps({"kernels": [stft_mel_entry, *diag_entries]}))
+    print(json.dumps({"kernels": [stft_mel_entry, db_entry, *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

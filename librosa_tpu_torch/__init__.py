@@ -1,14 +1,20 @@
 """librosa_tpu_torch: audio and music analysis on PyTorch and CUDA.
 
 The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
-(``feature.melspectrogram``, ``feature.mfcc``, ``filters.mel``,
-``filters.get_window``, flat ``power_to_db``, ``util.*``) and the same array
-layout: time on the last axis, bins on axis -2, any leading dims.
+(flat ``stft``, ``magphase``, ``power_to_db``, ``amplitude_to_db`` and their
+inverses, ``perceptual_weighting``; ``feature.melspectrogram``,
+``feature.mfcc``, ``feature.chroma_stft``, ``feature.spectral_centroid``,
+``feature.spectral_rolloff``, ``feature.rms``; ``filters.mel``,
+``filters.chroma``, ``filters.get_window``; ``util.normalize`` and friends)
+and the same array layout: time on the last axis, bins on axis -2, any
+leading dims.
 
 Inputs that are not tensors go to the default device, ``cuda`` unless
 :func:`set_device` chose another; tensors stay where they are. On the card
-the mel spectrogram runs as one hand-written CUDA kernel
-(``csrc/stft_mel.cu``); on the CPU each function runs its plain PyTorch
+``|STFT|**power`` projected onto a basis (mel, chroma, or the identity for a
+plain spectrogram) runs as one hand-written CUDA kernel
+(``csrc/stft_mel.cu``) and decibel scaling as another
+(``csrc/db_scale.cu``); on the CPU each function runs its plain PyTorch
 version.
 """
 

@@ -1,17 +1,23 @@
-"""Frequency-scale conversions (host numpy, float64).
+"""Frequency-scale conversions and weighting curves (host numpy, float64).
 
-These build the mel filterbank's frequency grids. They run once per
-configuration on the host, so they stay in numpy; only the finished
-filterbank goes to the card.
+These build the filterbanks' frequency grids and the per-bin offsets of
+perceptual weighting. They run once per configuration on the host, so they
+stay in numpy; only the finished table goes to the card.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
-__all__ = ["hz_to_mel", "mel_to_hz", "fft_frequencies", "mel_frequencies"]
+from ..util.exceptions import ParameterError
+
+__all__ = [
+    "hz_to_mel", "mel_to_hz", "fft_frequencies", "mel_frequencies",
+    "A_weighting", "B_weighting", "C_weighting", "D_weighting", "Z_weighting",
+    "frequency_weighting",
+]
 
 # Slaney's mel scale: linear (200/3 Hz per mel) below 1 kHz, logarithmic
 # above it with 27 mels per factor of 6.4 in frequency.
@@ -60,3 +66,86 @@ def mel_frequencies(
     """``n_mels`` frequencies evenly spaced on the mel scale from fmin to fmax."""
     mels = np.linspace(hz_to_mel(fmin, htk=htk), hz_to_mel(fmax, htk=htk), n_mels)
     return mel_to_hz(mels, htk=htk)
+
+
+# ---------------------------------------------------------------------------
+# Frequency weighting curves (IEC 61672 for A and C; B and D as withdrawn)
+# ---------------------------------------------------------------------------
+
+# corner frequencies in Hz shared by the A, B and C curves
+_F_LOW, _F_HIGH = 20.598997, 12194.217
+
+
+def _gain_db(frequencies: Any, offset: float, zeros: float, poles: list,
+             min_db: Optional[float]) -> np.ndarray:
+    """``offset + 20 log10 |H(f)|`` for ``|H| = f_high**2 f**zeros / prod (f**2 + p**2)**m``.
+
+    ``zeros`` is the number of zeros at the origin and ``poles`` a list of
+    ``(corner frequency, multiplicity)``; both corners ``_F_LOW`` and
+    ``_F_HIGH`` are double poles of every curve and are not listed.
+    """
+    f_sq = np.asanyarray(frequencies) ** 2.0
+    with np.errstate(divide="ignore"):
+        gain = 2.0 * np.log10(_F_HIGH) + 0.5 * zeros * np.log10(f_sq)
+        for corner, multiplicity in [(_F_HIGH, 2), (_F_LOW, 2), *poles]:
+            gain = gain - 0.5 * multiplicity * np.log10(f_sq + corner**2.0)
+    weights = offset + 20.0 * gain
+    return weights if min_db is None else np.maximum(min_db, weights)
+
+
+def A_weighting(frequencies: Any, *, min_db: Optional[float] = -80.0) -> np.ndarray:
+    """A-weighting gain in dB at ``frequencies`` (Hz), clipped below at ``min_db``.
+
+    Four zeros at the origin, double poles at 20.6 Hz and 12194 Hz, single
+    poles at 107.7 Hz and 737.9 Hz, +2.0 dB so that 1 kHz reads 0 dB.
+    """
+    return _gain_db(frequencies, 2.0, 4, [(107.65265, 1), (737.86223, 1)], min_db)
+
+
+def B_weighting(frequencies: Any, *, min_db: Optional[float] = -80.0) -> np.ndarray:
+    """B-weighting gain in dB: three zeros at the origin, a single pole at 158.5 Hz, +0.17 dB."""
+    return _gain_db(frequencies, 0.17, 3, [(158.48932, 1)], min_db)
+
+
+def C_weighting(frequencies: Any, *, min_db: Optional[float] = -80.0) -> np.ndarray:
+    """C-weighting gain in dB: two zeros at the origin and the shared double poles, +0.062 dB."""
+    return _gain_db(frequencies, 0.062, 2, [], min_db)
+
+
+def D_weighting(frequencies: Any, *, min_db: Optional[float] = -80.0) -> np.ndarray:
+    """D-weighting gain in dB at ``frequencies`` (Hz), clipped below at ``min_db``.
+
+    ``|H| = f / 6.8967e-5 * sqrt(h(f) / ((f^2 + 282.7^2) (f^2 + 1160^2)))`` with the
+    bump around 1-10 kHz ``h(f) = ((1018.7^2 - f^2)^2 + 1039.6^2 f^2) /
+    ((3136.5^2 - f^2)^2 + 3424^2 f^2)``.
+    """
+    f_sq = np.asanyarray(frequencies) ** 2.0
+    scale = 8.3046305e-3**2.0
+    with np.errstate(divide="ignore"):
+        bump = (np.log10((1018.7**2.0 - f_sq) ** 2 + 1039.6**2.0 * f_sq)
+                - np.log10((3136.5**2.0 - f_sq) ** 2 + 3424.0**2.0 * f_sq))
+        tail = np.log10(f_sq + 282.7**2.0) + np.log10(f_sq + 1160.0**2.0)
+        weights = 20.0 * (0.5 * np.log10(f_sq) - np.log10(scale) + 0.5 * (bump - tail))
+    return weights if min_db is None else np.maximum(min_db, weights)
+
+
+def Z_weighting(frequencies: Any, *, min_db: Optional[float] = None) -> np.ndarray:
+    """The flat weighting: 0 dB at every frequency (``min_db`` is accepted and unused)."""
+    return np.zeros_like(np.asanyarray(frequencies), dtype=float)
+
+
+_WEIGHTINGS = {"A": A_weighting, "B": B_weighting, "C": C_weighting, "D": D_weighting,
+               "Z": Z_weighting, None: Z_weighting}
+
+
+def frequency_weighting(frequencies: Any, *, kind: Optional[str] = "A",
+                        **kwargs: Any) -> np.ndarray:
+    """The weighting curve ``kind`` (``'A'``, ``'B'``, ``'C'``, ``'D'``, ``'Z'`` or None) in dB.
+
+    ``kwargs`` go to the curve (``min_db``).
+    """
+    if isinstance(kind, str):
+        kind = kind.upper()
+    if kind not in _WEIGHTINGS:
+        raise ParameterError(f"Unknown weighting kind: {kind}")
+    return _WEIGHTINGS[kind](frequencies, **kwargs)

@@ -1,4 +1,4 @@
-"""Entry point: the main path as one forward function, with an example input."""
+"""Entry points: each main path as one forward function, with an example input."""
 
 from __future__ import annotations
 
@@ -7,6 +7,8 @@ import numpy as np
 from . import feature
 from .core.spectrum import power_to_db
 
+SR = 22050
+
 
 def entry():
     """Return ``(forward, example_args)`` for y -> mel spectrogram -> dB -> MFCC.
@@ -14,11 +16,29 @@ def entry():
     The same forward as the JAX package's entry: 4 s at 22050 Hz, n_fft
     2048, hop 512, 128 mels, 20 coefficients.
     """
-    sr = 22050
-    n = sr * 4
-
     def forward(y):
-        M = feature.melspectrogram(y=y, sr=sr, n_fft=2048, hop_length=512, n_mels=128)
+        M = feature.melspectrogram(y=y, sr=SR, n_fft=2048, hop_length=512, n_mels=128)
         return feature.mfcc(S=power_to_db(M), n_mfcc=20)
 
-    return forward, (np.zeros(n, dtype=np.float32),)
+    return forward, (np.zeros(SR * 4, dtype=np.float32),)
+
+
+def feature_stack():
+    """Return ``(forward, example_args)`` for the feature stack of a batch of tracks.
+
+    ``forward(y)`` gives ``(mfcc, chroma, centroid, rolloff)`` of ``y``
+    ``(..., n)``: 20 MFCCs over 128 mels, 12 chroma at A440, spectral
+    centroid and 85 % roll-off, all at n_fft 2048 and hop 512. Each feature
+    is computed from ``y`` on its own, as the four public functions do: on
+    the card the stft_mel kernel runs four times (mel, chroma and twice the
+    identity basis) and the db_scale kernel once.
+    """
+    kw = dict(sr=SR, n_fft=2048, hop_length=512)
+
+    def forward(y):
+        return (feature.mfcc(y=y, n_mfcc=20, n_mels=128, **kw),
+                feature.chroma_stft(y=y, tuning=0.0, n_chroma=12, **kw),
+                feature.spectral_centroid(y=y, **kw),
+                feature.spectral_rolloff(y=y, **kw))
+
+    return forward, (np.zeros((2, SR * 4), dtype=np.float32),)

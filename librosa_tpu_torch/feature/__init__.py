@@ -1,3 +1,3 @@
-"""Feature extraction: mel spectrogram and MFCC."""
+"""Feature extraction: mel spectrogram, MFCC, chroma, spectral centroid and roll-off, RMS."""
 
 from .spectral import *  # noqa: F401,F403

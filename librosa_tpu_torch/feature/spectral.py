@@ -1,38 +1,49 @@
-"""Spectral features of the port's main path: mel spectrogram and MFCC."""
+"""Spectral features: mel spectrogram, MFCC, chroma, centroid, roll-off and RMS."""
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import filters
 from .._device import as_tensor, device_table, exact_f32
-from ..core.spectrum import _stft_mel_core, _win_device, power_to_db
+from ..core.convert import fft_frequencies
+from ..core.spectrum import _audio, _spectrogram, _stft_mel_core, _win_device, power_to_db
+from ..ops.framing import frame_signal
 from ..ops.fused_stft import basis_bands
 from ..ops.transforms import dct_matrix
 from ..util.exceptions import ParameterError
-from ..util.utils import expand_to
+from ..util.utils import expand_to, normalize, pad_last
 
-__all__ = ["melspectrogram", "mfcc"]
+__all__ = ["melspectrogram", "mfcc", "chroma_stft", "spectral_centroid", "spectral_rolloff",
+           "rms"]
+
+
+def _basis_device(make: Callable[..., np.ndarray], sr: float, n_fft: int,
+                  device: torch.device, dtype: torch.dtype,
+                  **kwargs: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The filterbank ``make(sr=sr, n_fft=n_fft, **kwargs)`` and its band table, on ``device``.
+
+    ``make`` is :func:`filters.mel` or :func:`filters.chroma`. Both tables
+    are made on the host from the same array and uploaded once per
+    configuration. The band table (each row's span of nonzero columns,
+    :func:`basis_bands`) is what the stft_mel kernel walks.
+    """
+    key = (make.__name__, float(sr), int(n_fft), tuple(sorted(kwargs.items())))
+
+    def basis() -> np.ndarray:
+        return make(sr=sr, n_fft=n_fft, **kwargs)
+
+    return (device_table(key, basis, device, dtype),
+            device_table(("bands",) + key, lambda: basis_bands(basis()), device, torch.int32))
 
 
 def _mel_device(sr: float, n_fft: int, device: torch.device, dtype: torch.dtype,
                 **kwargs: Any) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The mel filterbank ``(n_mels, 1 + n_fft // 2)`` and its band table, on ``device``.
-
-    Both are made on the host from the same :func:`filters.mel` array and
-    uploaded once per configuration. The band table (each row's span of
-    nonzero columns, :func:`basis_bands`) is what the stft_mel kernel walks.
-    """
-    key = (float(sr), int(n_fft), tuple(sorted(kwargs.items())))
-
-    def mel() -> np.ndarray:
-        return filters.mel(sr=sr, n_fft=n_fft, **kwargs)
-
-    return (device_table(("mel",) + key, mel, device, dtype),
-            device_table(("mel.bands",) + key, lambda: basis_bands(mel()), device, torch.int32))
+    """The mel filterbank ``(n_mels, 1 + n_fft // 2)`` and its band table, on ``device``."""
+    return _basis_device(filters.mel, sr, n_fft, device, dtype, **kwargs)
 
 
 def melspectrogram(
@@ -69,11 +80,7 @@ def melspectrogram(
     if y is None:
         raise ParameterError("Input signal must be provided to compute a spectrogram")
 
-    y = as_tensor(y)
-    if not y.dtype.is_floating_point:
-        raise ParameterError("Audio data must be floating-point")
-    if y.dtype not in (torch.float32, torch.float64):
-        y = y.to(torch.float32)
+    y = _audio(y)
     if win_length is None:
         win_length = n_fft
     if hop_length is None:
@@ -122,3 +129,218 @@ def mfcc(
         LI = expand_to(torch.sin(np.pi * k / lifter), ndim=S.ndim, axes=-2)
         M = M * (1 + (lifter / 2) * LI)
     return M
+
+
+def chroma_stft(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    S: Any = None,
+    norm: Optional[float] = np.inf,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+    tuning: Optional[float] = None,
+    n_chroma: int = 12,
+    **kwargs: Any,
+) -> torch.Tensor:
+    """Chromagram ``(..., n_chroma, T)``: ``|STFT|**2`` folded onto pitch classes, each frame
+    scaled to unit ``norm``.
+
+    From ``y``, float32 input that the stft_mel kernel takes runs as that
+    one kernel with the chroma filterbank as its basis, and other input as
+    the kernel's plain version; then :func:`util.normalize` over axis -2. A
+    power spectrogram ``S`` goes through one matrix product in full float32.
+    ``tuning`` is the deviation from A440 in fractions of a chroma bin and
+    must be given: estimating it (``estimate_tuning``) is not ported.
+    ``kwargs`` go to :func:`filters.chroma` (``ctroct``, ``octwidth``,
+    ``norm`` is taken by this function, ``base_c``).
+    """
+    if tuning is None:
+        raise ParameterError(
+            "chroma_stft needs an explicit tuning (0.0 for A440): estimating it needs "
+            "core.pitch.estimate_tuning, which the port does not have yet"
+        )
+    fb = dict(tuning=float(tuning), n_chroma=int(n_chroma), **kwargs)
+    if S is None:
+        if y is None:
+            raise ParameterError("Input signal must be provided to compute a spectrogram")
+        y = _audio(y)
+        if win_length is None:
+            win_length = n_fft
+        if hop_length is None:
+            hop_length = int(win_length // 4)
+        window_dev = _win_device(window, win_length, n_fft, y.device, y.dtype)
+        basis, bands = _basis_device(filters.chroma, sr, n_fft, y.device, y.dtype, **fb)
+        raw = _stft_mel_core(y, window_dev, basis, bands, n_fft=n_fft, hop_length=hop_length,
+                             center=center, pad_mode=pad_mode, power=2.0)
+        return normalize(raw, norm=norm, axis=-2)
+    S = as_tensor(S)
+    if not S.dtype.is_floating_point:
+        S = S.to(torch.float32)
+    if n_fft is None or n_fft // 2 + 1 != S.shape[-2]:
+        n_fft = 2 * (S.shape[-2] - 1)
+    basis, _ = _basis_device(filters.chroma, sr, n_fft, S.device, S.dtype, **fb)
+    return _project_norm_core(S, basis, norm=norm)
+
+
+def _project_norm_core(X: torch.Tensor, basis: torch.Tensor, *,
+                       norm: Optional[float]) -> torch.Tensor:
+    """``basis @ X`` in full float32, then each frame scaled to unit ``norm`` (None: as it is)."""
+    with exact_f32():
+        out = torch.matmul(basis, X)
+    return normalize(out, norm=norm, axis=-2)
+
+
+def _check_nonneg_real(S: torch.Tensor, name: str, *, computed: bool = False) -> None:
+    """Reject complex and negative spectra.
+
+    The test for negative values reads one flag back from the device, so it
+    runs only on an ``S`` the caller gave (``computed=False``); a magnitude
+    spectrogram computed here is non-negative by construction.
+    """
+    if S.is_complex():
+        raise ParameterError(f"{name} is only defined with real-valued input")
+    if not computed and bool((S < 0).any()):
+        raise ParameterError(f"{name} is only defined with non-negative energies")
+
+
+def _bin_frequencies(freq: Any, sr: float, n_fft: int, S: torch.Tensor) -> torch.Tensor:
+    """``freq`` (default: the FFT bins' centre frequencies) on ``S``'s device, broadcastable.
+
+    A 1-d ``freq`` is placed on axis -2; a full-rank one (frequencies that
+    vary with time) is used as it is.
+    """
+    dtype = S.dtype if S.dtype.is_floating_point else torch.float32
+    if freq is None:
+        freq = device_table(("fft_frequencies", float(sr), int(n_fft)),
+                            lambda: fft_frequencies(sr=sr, n_fft=n_fft), S.device, dtype)
+    elif isinstance(freq, torch.Tensor):
+        freq = freq.to(device=S.device, dtype=dtype)
+    else:
+        freq = torch.as_tensor(np.asarray(freq), dtype=dtype, device=S.device)
+    return expand_to(freq, ndim=S.ndim, axes=-2) if freq.ndim == 1 else freq
+
+
+def spectral_centroid(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    S: Any = None,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    freq: Any = None,
+    win_length: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+) -> torch.Tensor:
+    """Spectral centroid ``(..., 1, T)`` in Hz: each frame's magnitude-weighted mean frequency.
+
+    ``S`` is a magnitude spectrogram; without it ``|STFT(y)|`` is computed
+    (by the stft_mel kernel with the identity basis where it applies).
+    ``freq`` gives the bins' frequencies, 1-d or varying with time.
+    """
+    given = S is not None
+    S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length,
+                            win_length=win_length, window=window, center=center,
+                            pad_mode=pad_mode)
+    _check_nonneg_real(S, "Spectral centroid", computed=not given)
+    return _centroid_core(S, _bin_frequencies(freq, sr, n_fft, S))
+
+
+def _centroid_core(S: torch.Tensor, freq: torch.Tensor) -> torch.Tensor:
+    return (freq * normalize(S, norm=1, axis=-2)).sum(dim=-2, keepdim=True)
+
+
+def spectral_rolloff(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    S: Any = None,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+    freq: Any = None,
+    roll_percent: float = 0.85,
+) -> torch.Tensor:
+    """Roll-off frequency ``(..., 1, T)`` in Hz: the lowest bin at or below which lies
+    ``roll_percent`` of the frame's magnitude.
+
+    A frame of zeros gives the first bin's frequency.
+    """
+    if not 0.0 < roll_percent < 1.0:
+        raise ParameterError("roll_percent must lie in the range (0, 1)")
+    given = S is not None
+    S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length,
+                            win_length=win_length, window=window, center=center,
+                            pad_mode=pad_mode)
+    _check_nonneg_real(S, "Spectral rolloff", computed=not given)
+    return _rolloff_core(S, _bin_frequencies(freq, sr, n_fft, S),
+                         roll_percent=float(roll_percent))
+
+
+def _rolloff_core(S: torch.Tensor, freq: torch.Tensor, *, roll_percent: float) -> torch.Tensor:
+    total = S.cumsum(dim=-2)
+    threshold = roll_percent * total[..., -1:, :]
+    # bins below the threshold drop out of the minimum; the last bin never does
+    inf = torch.full((), float("inf"), dtype=freq.dtype, device=freq.device)
+    return torch.where(total < threshold, inf, freq).amin(dim=-2, keepdim=True)
+
+
+def rms(
+    *,
+    y: Any = None,
+    S: Any = None,
+    frame_length: int = 2048,
+    hop_length: int = 512,
+    center: bool = True,
+    pad_mode: str = "constant",
+    dtype: Any = torch.float32,
+) -> torch.Tensor:
+    """Root-mean-square energy ``(..., 1, T)`` of each frame.
+
+    From ``y``: the mean of the squared samples of each frame (padded by
+    ``frame_length // 2`` a side where ``center``). From a magnitude
+    spectrogram ``S``: by Parseval's theorem over the one-sided spectrum,
+    with the DC bin (and the Nyquist bin of an even ``frame_length``)
+    counted once. ``dtype`` (a torch or numpy real dtype) is the type the
+    squares are taken in.
+    """
+    if not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, np.dtype(dtype).name)
+    if y is not None:
+        y = as_tensor(y)
+        if center:
+            y = pad_last(y, frame_length // 2, frame_length // 2, mode=pad_mode)
+        frames = frame_signal(y, frame_length=int(frame_length), hop_length=int(hop_length))
+        power = _abs2(frames, dtype).mean(dim=-1).unsqueeze(-2)
+        return power.sqrt()
+    if S is None:
+        raise ParameterError("Either `y` or `S` must be input.")
+    S = as_tensor(S)
+    if S.shape[-2] != frame_length // 2 + 1:
+        raise ParameterError(
+            f"Since S.shape[-2] is {S.shape[-2]}, frame_length is expected to be "
+            f"{S.shape[-2] * 2 - 2} or {S.shape[-2] * 2 - 1}; found {frame_length}"
+        )
+    x = _abs2(S, dtype)
+    scale = torch.ones(x.shape[-2], dtype=torch.float32, device=x.device)
+    scale[0] = 0.5
+    if frame_length % 2 == 0:
+        scale[-1] = 0.5
+    x = x * expand_to(scale, ndim=x.ndim, axes=-2)
+    return (2 * x.sum(dim=-2, keepdim=True) / frame_length**2).sqrt()
+
+
+def _abs2(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``|x|**2`` in ``dtype``, from real and imaginary parts for complex input."""
+    if x.is_complex():
+        return (x.real.square() + x.imag.square()).to(dtype)
+    return x.square().to(dtype)

@@ -18,7 +18,7 @@ import torch
 from .core.convert import fft_frequencies, mel_frequencies
 from .util.exceptions import ParameterError
 
-__all__ = ["mel", "get_window"]
+__all__ = ["mel", "chroma", "get_window"]
 
 
 def get_window(window: Any, Nx: int, *, fftbins: bool = True) -> np.ndarray:
@@ -117,3 +117,67 @@ def mel(
         fmax = float(sr) / 2
     return _mel_basis(float(sr), int(n_fft), int(n_mels), float(fmin), float(fmax),
                       bool(htk), norm, np.dtype(dtype).str)
+
+
+@functools.lru_cache(maxsize=64)
+def _chroma_basis(sr: float, n_fft: int, n_chroma: int, tuning: float, ctroct: float,
+                  octwidth: Optional[float], norm: Any, base_c: bool,
+                  dtype: str) -> np.ndarray:
+    # Every FFT bin gets a position on a pitch axis counted in chroma steps:
+    # n_chroma steps per octave above a sixteenth of the (tuned) A440. Bin 0
+    # has no logarithm and is put an octave and a half below bin 1. One bin
+    # beyond the last column kept is placed too, so that every column has a
+    # right-hand neighbour.
+    n_bins = 1 + n_fft // 2
+    a440 = 440.0 * 2.0 ** (tuning / n_chroma)
+    k = np.arange(1, n_bins + 1, dtype=np.float64)
+    pos = n_chroma * np.log2(k * sr / n_fft / (a440 / 16.0))
+    pos = np.concatenate(([pos[0] - 1.5 * n_chroma], pos))
+    # a bin is as wide as the step to the next one, and never narrower than one chroma
+    width = np.maximum(np.diff(pos), 1.0)
+    pos = pos[:n_bins]
+
+    # distance from each bin to each chroma class around the circle, in
+    # [-half, n_chroma - half), then a Gaussian whose sigma is half the bin's width
+    half = np.round(n_chroma / 2.0)
+    dist = pos[None, :] - np.arange(n_chroma, dtype=np.float64)[:, None]
+    dist = np.mod(dist + half, n_chroma) - half
+    weights = np.exp(-0.5 * (2.0 * dist / width[None, :]) ** 2)
+
+    if norm is not None:
+        weights = _normalize_rows(weights.T, norm).T  # each column to unit norm
+    if octwidth is not None:
+        # bins far from octave ``ctroct`` (counted from A440 / 16) weigh less
+        weights = weights * np.exp(-0.5 * ((pos / n_chroma - ctroct) / octwidth) ** 2)[None, :]
+    if base_c:
+        # class 0 is A: bring C (three semitones up) to row 0
+        weights = np.roll(weights, -3 * (n_chroma // 12), axis=0)
+    out = np.ascontiguousarray(weights.astype(np.dtype(dtype)))
+    out.setflags(write=False)
+    return out
+
+
+def chroma(
+    *,
+    sr: float,
+    n_fft: int,
+    n_chroma: int = 12,
+    tuning: float = 0.0,
+    ctroct: float = 5.0,
+    octwidth: Optional[float] = 2,
+    norm: Optional[float] = 2,
+    base_c: bool = True,
+    dtype: Any = np.float32,
+) -> np.ndarray:
+    """Chroma filterbank of shape ``(n_chroma, 1 + n_fft // 2)``.
+
+    Column ``k`` spreads FFT bin ``k`` over the pitch classes by a Gaussian
+    of its wrapped distance to each class, normalised to unit ``norm`` and
+    weighted by a Gaussian over octaves centred ``ctroct`` octaves above
+    A440 / 16 with width ``octwidth`` (None: no octave weighting).
+    ``tuning`` shifts A440 by that fraction of a chroma bin; ``base_c``
+    puts C in row 0 (else A). The result is cached and read-only.
+    """
+    return _chroma_basis(float(sr), int(n_fft), int(n_chroma), float(tuning), float(ctroct),
+                         None if octwidth is None else float(octwidth), norm, bool(base_c),
+                         np.dtype(dtype).str)

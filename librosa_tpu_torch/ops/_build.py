@@ -26,7 +26,8 @@ __all__ = ["build", "build_all", "load", "build_log"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"stft_mel": "stft_mel.cu", "staged_probe": "staged_probe.cu"}
+SOURCES = {"stft_mel": "stft_mel.cu", "staged_probe": "staged_probe.cu",
+           "db_scale": "db_scale.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -44,10 +44,10 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .._device import as_tensor, device_table, exact_f32
 from ..util.exceptions import ParameterError
+from ..util.utils import pad_last
 from . import _build
 from .fft import frames_power_spectrum
 from .framing import frame_signal
@@ -64,8 +64,6 @@ launches = 0
 _MAX_SMEM = 232448            # bytes of shared memory one H100 block may use
 _HALF_SMEM = 115712           # ... and the most that lets two blocks share an SM (1 KB reserved each)
 _TILE_CHOICES = (8, 4, 2, 1)  # frames per block
-_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
-              "wrap": "circular"}
 
 
 def _fft_plan(n_fft: int) -> Tuple[int, List[int]]:
@@ -333,6 +331,27 @@ def _fused(y: Any, window: Any, basis: Any, bands: Optional[torch.Tensor], *, n_
     return out.reshape(*lead, n_out, n_frames)
 
 
+def frames_power(y: torch.Tensor, window: torch.Tensor, *, n_fft: int, hop_length: int,
+                 power: float, center: bool, pad_mode: str) -> torch.Tensor:
+    """``|rfft(window * frame)|**power`` of every frame of ``y``: ``(..., T, 1 + n_fft // 2)``.
+
+    Pad by ``n_fft // 2`` a side where ``center`` (``pad_mode`` as
+    :func:`~librosa_tpu_torch.util.utils.pad_last` takes it), frame with
+    ``unfold``, window, ``torch.fft.rfft``. ``y`` and ``window`` share a
+    device and a real dtype.
+    """
+    lpad, _ = frame_geometry(y.shape[-1], n_fft=n_fft, hop_length=hop_length,
+                             center=center, pad_mode=pad_mode)
+    y = pad_last(y, lpad, lpad, mode=pad_mode)
+    pw = frames_power_spectrum(frame_signal(y, frame_length=n_fft, hop_length=hop_length)
+                               * window)
+    if power == 1:
+        return pw.sqrt()
+    if power != 2:
+        return pw ** (power / 2)
+    return pw
+
+
 def stft_mel_reference(
     y: Any,
     window: Any,
@@ -346,30 +365,17 @@ def stft_mel_reference(
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`stft_mel_fused`, on ``y``'s device.
 
-    Pad, frame with ``unfold``, window, ``torch.fft.rfft``, ``|.|**power``,
-    then ``torch.matmul`` with the basis in full float32 (or in float64 for
-    float64 input). ``pad_mode`` is one of ``'constant'``, ``'reflect'``,
-    ``'edge'`` or ``'wrap'``.
+    :func:`frames_power` (pad, ``unfold``, window, ``torch.fft.rfft``,
+    ``|.|**power``), then ``torch.matmul`` with the basis in full float32
+    (or in float64 for float64 input). ``pad_mode`` is one of
+    ``'constant'``, ``'reflect'``, ``'symmetric'``, ``'edge'`` or ``'wrap'``.
     """
     y = as_tensor(y)
     dtype = y.dtype if y.dtype in (torch.float32, torch.float64) else torch.float32
     y = y.to(dtype)
-    if pad_mode not in _PAD_MODES:
-        raise ParameterError(f"Unsupported pad_mode={pad_mode!r}")
-    lead, sig_len = y.shape[:-1], y.shape[-1]
-    lpad, _ = frame_geometry(sig_len, n_fft=n_fft, hop_length=hop_length,
-                             center=center, pad_mode=pad_mode)
     win = _table(window, y.device, dtype)
     bas = _table(basis, y.device, dtype)
-    y2 = y.reshape(-1, 1, sig_len)
-    if lpad:
-        y2 = F.pad(y2, (lpad, lpad), mode=_PAD_MODES[pad_mode])
-    frames = frame_signal(y2[:, 0], frame_length=n_fft, hop_length=hop_length)
-    pw = frames_power_spectrum(frames * win)
-    if power == 1:
-        pw = pw.sqrt()
-    elif power != 2:
-        pw = pw ** (power / 2)
+    pw = frames_power(y, win, n_fft=n_fft, hop_length=hop_length, power=power,
+                      center=center, pad_mode=pad_mode)
     with exact_f32():
-        out = torch.matmul(bas, pw.transpose(-1, -2))
-    return out.reshape(*lead, *out.shape[-2:])
+        return torch.matmul(bas, pw.transpose(-1, -2))

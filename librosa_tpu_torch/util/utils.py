@@ -2,14 +2,21 @@
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Union
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .._device import as_tensor
 from .exceptions import ParameterError
 
-__all__ = ["tiny", "expand_to"]
+__all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length"]
+
+# numpy's names for padding modes, as torch.nn.functional.pad knows them
+_TORCH_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
+                    "wrap": "circular"}
+_PAD_MODES = tuple(_TORCH_PAD_MODES) + ("symmetric",)
 
 
 def tiny(x: Any) -> float:
@@ -48,3 +55,133 @@ def expand_to(x: Any, *, ndim: int, axes: Union[int, Sequence[int]]) -> torch.Te
     for pos, extent in placement.items():
         shape[pos] = extent
     return x.reshape(tuple(shape))
+
+
+def pad_last(x: torch.Tensor, before: int, after: int, *, mode: str = "constant",
+             constant_values: float = 0.0) -> torch.Tensor:
+    """Pad the last axis of ``x`` by ``(before, after)`` samples, with numpy's mode names.
+
+    ``constant``, ``reflect`` (mirror without the edge sample), ``edge`` and
+    ``wrap`` go to ``torch.nn.functional.pad``; ``symmetric`` (mirror with
+    the edge sample) is a gather by index. ``reflect``, ``symmetric`` and
+    ``wrap`` take at most one period, as ``torch`` does: a pad as long as
+    the axis or longer raises. Other modes of ``numpy.pad`` (``linear_ramp``,
+    ``mean``, ``median``, ``maximum``, ``minimum``, ``empty``) are not
+    mapped and raise :class:`ParameterError`.
+    """
+    if mode not in _PAD_MODES:
+        raise ParameterError(f"Unsupported pad mode {mode!r}: the port pads {_PAD_MODES}")
+    if before == 0 and after == 0:
+        return x
+    n = x.shape[-1]
+    if mode == "constant":
+        return F.pad(x, (before, after), mode="constant", value=constant_values)
+    limit = {"reflect": n - 1, "symmetric": n, "wrap": n}.get(mode)
+    if limit is not None and max(before, after) > limit:
+        raise ParameterError(
+            f"pad mode {mode!r} takes at most {limit} samples a side from an axis of "
+            f"{n}; got ({before}, {after})"
+        )
+    if mode == "symmetric":
+        idx = torch.arange(-before, n + after, device=x.device)
+        idx = torch.where(idx < 0, -idx - 1, idx)
+        idx = torch.where(idx >= n, 2 * n - 1 - idx, idx)
+        return x.index_select(-1, idx)
+    # F.pad's non-constant modes want (batch, channel, length)
+    out = F.pad(x.reshape(-1, 1, n), (before, after), mode=_TORCH_PAD_MODES[mode])
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def _pad_axis(data: torch.Tensor, before: int, after: int, axis: int,
+              kwargs: dict) -> torch.Tensor:
+    kwargs = {"mode": "constant", **kwargs}
+    unknown = set(kwargs) - {"mode", "constant_values"}
+    if unknown:
+        raise ParameterError(f"Unsupported padding arguments: {sorted(unknown)}")
+    return pad_last(data.movedim(axis, -1), before, after, **kwargs).movedim(-1, axis)
+
+
+def pad_center(data: Any, *, size: int, axis: int = -1, **kwargs: Any) -> torch.Tensor:
+    """``data`` centred in an axis of length ``size``; an odd remainder goes right.
+
+    ``kwargs`` are ``mode`` (see :func:`pad_last`) and ``constant_values``.
+    """
+    data = as_tensor(data)
+    slack = size - data.shape[axis]
+    if slack < 0:
+        raise ParameterError(
+            f"cannot center data of length {data.shape[axis]} in size={size}"
+        )
+    return _pad_axis(data, slack // 2, slack - slack // 2, axis, kwargs)
+
+
+def fix_length(data: Any, *, size: int, axis: int = -1, **kwargs: Any) -> torch.Tensor:
+    """``data`` cut or right-padded to exactly ``size`` elements along ``axis``.
+
+    ``kwargs`` are ``mode`` (see :func:`pad_last`) and ``constant_values``.
+    """
+    data = as_tensor(data)
+    shortfall = size - data.shape[axis]
+    if shortfall == 0:
+        return data
+    if shortfall < 0:
+        return data.narrow(axis, 0, size)
+    return _pad_axis(data, 0, shortfall, axis, kwargs)
+
+
+def normalize(
+    S: Any,
+    *,
+    norm: Optional[float] = np.inf,
+    axis: Optional[int] = 0,
+    threshold: Optional[float] = None,
+    fill: Optional[bool] = None,
+) -> torch.Tensor:
+    """Scale ``S`` to unit ``norm`` along ``axis`` (over the whole array for ``axis=None``).
+
+    ``norm`` is ``inf`` (peak), ``-inf`` (least magnitude), 0 (count of
+    nonzeros), any ``p > 0``, or None (no scaling). Slices whose norm is
+    below ``threshold`` (default: the dtype's smallest normal number) are
+    left as they are (``fill=None``), set to zero (``fill=False``) or set to
+    the uniform vector of unit norm (``fill=True``). Everything stays on
+    ``S``'s device; no value is read back to the host.
+    """
+    if fill not in (None, False, True):
+        raise ParameterError(f"fill={fill} must be None or boolean")
+    if threshold is not None and threshold <= 0:
+        raise ParameterError(f"threshold={threshold} must be strictly positive")
+    S = as_tensor(S)
+    if not (S.dtype.is_floating_point or S.dtype.is_complex):
+        raise ParameterError("Input must be floating point")
+    if norm is None:
+        return S
+
+    floor = tiny(S) if threshold is None else threshold
+    mag = S.abs()
+    if mag.dtype in (torch.float16, torch.bfloat16):
+        mag = mag.to(torch.float32)
+    dims = None if axis is None else (axis,)
+
+    unit_fill = 1.0
+    if norm == np.inf:
+        scale = mag.amax(dim=dims, keepdim=True)
+    elif norm == -np.inf:
+        scale = mag.amin(dim=dims, keepdim=True)
+    elif norm == 0:
+        if fill is True:
+            raise ParameterError("norm=0 is incompatible with fill=True")
+        scale = (mag != 0).sum(dim=dims, keepdim=True).to(mag.dtype)
+    elif np.issubdtype(type(norm), np.number) and norm > 0:
+        scale = (mag**norm).sum(dim=dims, keepdim=True) ** (1.0 / norm)
+        extent = mag.numel() if axis is None else mag.shape[axis]
+        unit_fill = extent ** (-1.0 / norm)
+    else:
+        raise ParameterError(f"Unsupported norm: {norm!r}")
+
+    below = scale < floor
+    if fill is None:
+        return S / scale.masked_fill(below, 1.0)
+    if fill is False:
+        return S / scale.masked_fill(below, float("inf"))
+    out = S / scale.masked_fill(below, float("nan"))
+    return torch.where(out.isnan(), unit_fill, out)

@@ -100,6 +100,38 @@ def test_matches_pallas_bases(n_fft, hop, basis_name):
     assert _snr(got, want) >= MIN_SNR_DB
 
 
+@pytest.mark.parametrize("n_fft,hop", GEOMETRIES)
+@pytest.mark.parametrize("basis_name,power", [("chroma", 2.0), ("chroma24", 2.0),
+                                              ("identity", 1.0), ("identity", 2.0)])
+def test_port_bases_with_cached_bands_match_pallas(n_fft, hop, basis_name, power):
+    # the bases and band tables as chroma_stft and _spectrogram hand them to the kernel
+    from librosa_tpu_torch.core.spectrum import _eye_device
+    from librosa_tpu_torch.feature.spectral import _basis_device
+
+    cpu = torch.device("cpu")
+    if basis_name == "identity":
+        basis, bands = _eye_device(n_fft, cpu)
+        assert torch.equal(basis, torch.eye(n_fft // 2 + 1))
+        assert torch.equal(bands[:, 1] - bands[:, 0], torch.ones(n_fft // 2 + 1,
+                                                                 dtype=torch.int32))
+    else:
+        kw = dict(tuning=0.0, n_chroma=12) if basis_name == "chroma" else dict(tuning=0.25,
+                                                                              n_chroma=24)
+        basis, bands = _basis_device(L.filters.chroma, SR, n_fft, cpu, torch.float32, **kw)
+        np.testing.assert_array_equal(
+            basis.numpy(), np.asarray(lt.filters.chroma(sr=SR, n_fft=n_fft, **kw)))
+    assert torch.equal(bands, fused_stft.basis_bands(basis))
+    rng = np.random.RandomState(11)
+    y = (rng.randn(2, 12000) * 0.1).astype(np.float32)
+    win = lt.filters.get_window("hann", n_fft).astype(np.float32)
+    kw = dict(n_fft=n_fft, hop_length=hop, power=power)
+    want = np.asarray(stft_mel_pallas(y, win, basis.numpy(), interpret=True, **kw))
+    got = fused_stft._fused(torch.from_numpy(y), win, basis, bands, center=True,
+                            pad_mode="constant", **kw)
+    assert got.shape == (2, basis.shape[0], want.shape[-1])
+    assert _snr(got, want) >= (MIN_SNR_POWER1_DB if power == 1 else MIN_SNR_DB)
+
+
 def test_support_is_superset_of_pallas():
     # the test_kernel_support_matrix cases
     for n_fft, hop in [(2048, 512), (4096, 1024)]:

@@ -1,4 +1,4 @@
-"""Golden replay against the PyTorch port (its main-path suites).
+"""Golden replay against the PyTorch port (the suites of what it has ported).
 
 The same case table and fixtures as tests/test_goldens.py, which hold the
 JAX package to the upstream reference, run here with ``L =
@@ -14,7 +14,9 @@ import golden_cases
 import librosa_tpu_torch
 
 GOLDEN_DIR = Path(__file__).parent / "goldens"
-PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs"]
+PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs", "filters_chroma",
+          "normalize_configs", "stft", "stft_configs", "db_scaling", "chroma_stft",
+          "spectrogram_inputs"]
 
 
 @pytest.fixture(autouse=True)

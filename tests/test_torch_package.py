@@ -72,14 +72,21 @@ def test_default_device_is_cuda_and_settable():
 
 
 def test_namespace_layout():
-    for name in ("melspectrogram", "mfcc"):
+    for name in ("melspectrogram", "mfcc", "chroma_stft", "spectral_centroid",
+                 "spectral_rolloff", "rms"):
         assert callable(getattr(L.feature, name))
-    for name in ("mel", "get_window"):
+    for name in ("mel", "chroma", "get_window"):
         assert callable(getattr(L.filters, name))
     for name in ("power_to_db", "hz_to_mel", "mel_to_hz", "fft_frequencies",
-                 "mel_frequencies", "set_device", "get_device"):
+                 "mel_frequencies", "set_device", "get_device", "stft", "magphase",
+                 "amplitude_to_db", "db_to_power", "db_to_amplitude", "perceptual_weighting",
+                 "frequency_weighting", "A_weighting", "B_weighting", "C_weighting",
+                 "D_weighting", "Z_weighting"):
         assert callable(getattr(L, name))
-    assert callable(L.util.tiny) and callable(L.util.expand_to)
+    for name in ("tiny", "expand_to", "normalize", "pad_center", "fix_length"):
+        assert callable(getattr(L.util, name))
+    from librosa_tpu_torch import entry
+    assert callable(entry.entry) and callable(entry.feature_stack)
     assert issubclass(L.ParameterError, L.LibrosaError)
 
 
