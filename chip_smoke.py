@@ -24,6 +24,23 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    kernel once and that each output agrees with float64 numpy, and times
    it end to end, the mel kernel with the chroma and the identity basis,
    and the centroid and roll-off tails alone;
+4c. holds the synthesis kernel (``csrc/ola_norm.cu``: window, overlap-add,
+   trim and normalise behind ``istft``) against its plain version and
+   against float64 on NaN-filled memory (n_fft 512 to 2048; hops that
+   divide n_fft, do not, and equal it; centred or not; ``length`` shorter
+   and longer than the frames; a short window; one and several tracks) and
+   checks that a second run gives the same bits;
+4d. drives ``entry.reconstruction()`` (resample 22050 -> 16000 Hz, |STFT|,
+   32 rounds of Griffin-Lim) on the same buffer, checks that it launched the
+   mel kernel once and the synthesis kernel 33 times, holds the mel kernel
+   at this path's shape (rows off a 16-byte boundary, a ragged last frame
+   tile) against its plain version and float64, ``resample`` against float64 ``scipy.signal.resample_poly``, ``istft(stft(y))`` against
+   ``y``, four zero-phase rounds against a float64 numpy loop, the spectral
+   convergence and the seed's determinism, and times the path end to end
+   and part by part, with its peak memory;
+4e. holds ``estimate_tuning`` against a float64 numpy version on detuned
+   tones, ``piptrack`` with a callable ``ref`` on the card, drives ``chroma_stft`` with the default (estimated) tuning on the
+   main buffer against float64, and times both;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024;
@@ -60,6 +77,16 @@ MIN_CHROMA_SNR_DB = 115.0  # the chroma projection is the mel kernel with anothe
 MIN_CENTROID_SNR_DB = 100.0  # a ratio of two sums over |.| (power 1) spectra
 MIN_ROLLOFF_EQUAL = 0.999  # share of frames on the float64 bin; the rest one bin off
 DB_ATOL = 1e-4            # dB: kernel and plain take the same float32 steps
+RECON = dict(n_fft=2048, hop_length=512)
+RECON_SR = 16000
+MIN_OLA_PLAIN_SNR_DB = 130.0   # the same float32 products and sums (in practice bit-equal)
+MIN_OLA_F64_SNR_DB = 115.0     # the goldens' istft floor
+MIN_RESAMPLE_SNR_DB = 100.0    # one float32 matrix product over 28 taps a phase
+MIN_ROUNDTRIP_SNR_DB = 115.0   # the goldens' istft(stft(y)) floor
+MIN_GL_SNR_DB = 80.0           # four rounds feed their float32 rounding back through the FFTs
+MAX_CONVERGENCE_32 = 0.15      # || |stft(y_hat)| - S || / || S || after 32 rounds, on noise
+                               # (0.109940 on the H100; 0.260743 after 4 rounds)
+TUNING_RESOLUTION = 0.01       # the histogram's cell: the port and float64 may differ by one
 
 # H100 SXM datasheet (dense): HBM bytes/s and float32 CUDA-core FLOP/s
 H100_HBM_BYTES_S = 3.35e12
@@ -78,13 +105,18 @@ def snr_db(got, want) -> float:
     return float(10 * np.log10(np.sum(want**2) / max(err, 1e-300)))
 
 
-def spec64(y, window, *, n_fft, hop, center=True, pad_mode="constant"):
-    """|STFT| in float64 numpy, as (1 + n_fft // 2, T)."""
+def stft64(y, window, *, n_fft, hop, center=True, pad_mode="constant"):
+    """STFT in float64 numpy, as complex (1 + n_fft // 2, T)."""
     y = np.asarray(y, dtype=np.float64)
     if center:
         y = np.pad(y, n_fft // 2, mode=pad_mode)
     frames = np.lib.stride_tricks.sliding_window_view(y, n_fft)[::hop]
-    return np.abs(np.fft.rfft(frames * np.asarray(window, np.float64), axis=-1)).T
+    return np.fft.rfft(frames * np.asarray(window, np.float64), axis=-1).T
+
+
+def spec64(y, window, **kw):
+    """|STFT| in float64 numpy, as (1 + n_fft // 2, T)."""
+    return np.abs(stft64(y, window, **kw))
 
 
 def mel64(y, window, basis, *, n_fft, hop, power=2.0, center=True, pad_mode="constant"):
@@ -604,6 +636,453 @@ def feature_stack_phase(torch, L, device, y, win, mel_basis, k1_ms: float) -> di
     return {"launches": counts, "bases": times}
 
 
+def snr_t(torch, got, want, mask=None) -> float:
+    """SNR in dB of ``got`` against ``want``, both tensors on the card, summed in float64."""
+    got, want = got.double(), want.double()
+    if mask is not None:
+        got, want = got[..., mask], want[..., mask]
+    err = float((got - want).square().sum())
+    return float(10 * np.log10(float(want.square().sum()) / max(err, 1e-300)))
+
+
+def ola_cases():
+    """(label, signal shape, stft kwargs, istft kwargs) for the synthesis kernel."""
+    cases = []
+    for n_fft in (512, 1024, 2048):
+        n = 20 * n_fft + 77
+        for hop, tag in ((n_fft // 4, "divides"), (441, "does not divide"), (n_fft, "equals")):
+            for center in (True, False):
+                cases.append((f"n_fft={n_fft} hop={hop} ({tag} n_fft) center={center}", (2, n),
+                              dict(n_fft=n_fft, hop_length=hop, center=center),
+                              dict(hop_length=hop, center=center)))
+        hop = n_fft // 4
+        for length, tag in ((n // 2, "shorter"), (n, "as long as the signal"),
+                            (n + 3 * n_fft + 1, "longer")):
+            cases.append((f"n_fft={n_fft} hop={hop} length={length} ({tag})", (3, n),
+                          dict(n_fft=n_fft, hop_length=hop), dict(hop_length=hop, length=length)))
+        cases.append((f"n_fft={n_fft} hop=441 length={n} uncentred", (2, n),
+                      dict(n_fft=n_fft, hop_length=441, center=False),
+                      dict(hop_length=441, center=False, length=n)))
+    cases += [
+        ("n_fft=1024 win_length=768 hamming", (2, 30000),
+         dict(n_fft=1024, win_length=768, window="hamming"),
+         dict(n_fft=1024, win_length=768, window="hamming", length=30000)),
+        ("n_fft=512 hop=512 boxcar", (2, 20000), dict(n_fft=512, hop_length=512, window="boxcar"),
+         dict(hop_length=512, window="boxcar")),
+        ("one track", (40000,), dict(n_fft=2048, hop_length=512), dict(hop_length=512)),
+        ("2 x 3 tracks", (2, 3, 25000), dict(n_fft=1024), dict(length=25000)),
+        ("16 tracks", (16, 30000), dict(n_fft=2048, hop_length=512),
+         dict(hop_length=512, length=30000)),
+    ]
+    return cases
+
+
+def ola_inputs(torch, spectrum, D, istft_kw):
+    """What ``istft(D, **istft_kw)`` hands its synthesis step: frames, window, envelope, hop, start.
+
+    The float64 copies of window and envelope come with them.
+    """
+    window = istft_kw.get("window", "hann")
+    n_fft, win_length, hop, n_frames, start, out_len = spectrum._istft_geometry(
+        tuple(D.shape), n_fft=istft_kw.get("n_fft"), win_length=istft_kw.get("win_length"),
+        hop_length=istft_kw.get("hop_length"), center=istft_kw.get("center", True),
+        length=istft_kw.get("length"))
+    frames = torch.fft.irfft(D[..., :n_frames].transpose(-2, -1), n=n_fft, dim=-1)
+    tables = []
+    for dtype in (torch.float32, torch.float64):
+        tables.append(spectrum._win_device(window, win_length, n_fft, D.device, dtype))
+        tables.append(spectrum._wss_device(window, n_frames=n_frames, win_length=win_length,
+                                           n_fft=n_fft, hop_length=hop, start=start,
+                                           out_len=out_len, device=D.device, dtype=dtype))
+    return frames, tables, hop, start
+
+
+def ola_kernel_phase(torch, L, rng, device) -> None:
+    """Phase 4c: the synthesis kernel against its plain version and float64, and run twice."""
+    from librosa_tpu_torch.core import spectrum
+    from librosa_tpu_torch.ops import ola_norm
+
+    cases = ola_cases()
+    for label, shape, stft_kw, istft_kw in cases:
+        y = torch.from_numpy((rng.randn(*shape) * 0.1).astype(np.float32)).to(device)
+        D = L.stft(y, **stft_kw)
+        frames, (win, wss, win64, wss64), hop, start = ola_inputs(torch, spectrum, D, istft_kw)
+        before = ola_norm.launches
+        poison(torch, (*D.shape[:-2], wss.shape[0]), device)
+        got = L.istft(D, **istft_kw)
+        if ola_norm.launches != before + 1:
+            raise AssertionError(f"ola {label}: istft did not launch the ola_norm kernel")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ola {label}: {int((~torch.isfinite(got)).sum())} of "
+                                 f"{got.numel()} values unwritten or not finite")
+        want = ola_norm.ola_norm_reference(frames, win, wss, hop_length=hop, start=start)
+        again = ola_norm.ola_norm(frames, win, wss, hop_length=hop, start=start)
+        want64 = ola_norm.ola_norm_reference(frames.double(), win64, wss64, hop_length=hop,
+                                             start=start)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"ola {label}: two runs of the kernel differ")
+        # Against float64, samples that only a window's skirt reaches (an envelope below a
+        # thousandth of its peak) are left out: there the quotient is float32 rounding of
+        # the frames over a vanishing window, in any float32 version.
+        sound = (wss64 > 1e-3 * wss64.max()) | (wss64 == 0)
+        s_plain, s64 = snr_t(torch, got, want), snr_t(torch, got, want64, sound)
+        note = "bit-equal" if torch.equal(got, want) else "not bit-equal"
+        # the launch's predicate for four samples a thread (torch's buffers are 16-byte aligned)
+        vec = 4 if hop % 4 == 0 and frames.shape[-1] % 4 == 0 and start % 4 == 0 else 1
+        print(f"ola kernel  {label} {tuple(frames.shape)} -> {tuple(got.shape)}, {vec} per "
+              f"thread: vs plain {s_plain:.1f} dB ({note}), vs float64 {s64:.1f} dB on "
+              f"{int(sound.sum())} of {sound.numel()} samples, second run bit-equal")
+        if not s_plain >= MIN_OLA_PLAIN_SNR_DB:
+            raise AssertionError(f"ola {label}: {s_plain:.1f} dB vs plain < "
+                                 f"{MIN_OLA_PLAIN_SNR_DB}")
+        if not s64 >= MIN_OLA_F64_SNR_DB:
+            raise AssertionError(f"ola {label}: {s64:.1f} dB vs float64 < {MIN_OLA_F64_SNR_DB}")
+    print(f"ola kernel vs plain and float64: {len(cases)} cases passed, each on NaN-filled "
+          f"memory and run twice")
+
+
+def istft64(D, window, *, n_fft, hop, length):
+    """Centred inverse STFT in float64 numpy, to ``length`` samples."""
+    frames = np.fft.irfft(D.T, n=n_fft, axis=-1) * window
+    full = np.zeros(n_fft + hop * (len(frames) - 1))
+    wss = np.zeros_like(full)
+    for t, frame in enumerate(frames):
+        full[t * hop:t * hop + n_fft] += frame
+        wss[t * hop:t * hop + n_fft] += window**2
+    y = np.zeros(length)
+    w = np.zeros(length)
+    take = min(length, len(full) - n_fft // 2)
+    y[:take] = full[n_fft // 2:n_fft // 2 + take]
+    w[:take] = wss[n_fft // 2:n_fft // 2 + take]
+    good = w > np.finfo(np.float32).tiny
+    return np.where(good, y / np.where(good, w, 1.0), y)
+
+
+def griffinlim64(S, window, *, n_iter, n_fft, hop, length, momentum=0.99):
+    """Griffin-Lim from zero phase in float64 numpy: the recurrence of ``griffinlim``."""
+    S = np.asarray(S, dtype=np.float64)
+    eps = np.finfo(np.float32).tiny
+    angles = np.ones_like(S, dtype=np.complex128)
+    rebuilt = np.zeros_like(angles)
+    for _ in range(n_iter):
+        tprev = rebuilt
+        rebuilt = stft64(istft64(S * angles, window, n_fft=n_fft, hop=hop, length=length),
+                         window, n_fft=n_fft, hop=hop)
+        angles = rebuilt - (momentum / (1 + momentum)) * tprev
+        angles = angles / (np.abs(angles) + eps)
+    return istft64(S * angles, window, n_fft=n_fft, hop=hop, length=length)
+
+
+def reconstruction_phase(torch, L, device, y, win) -> dict:
+    """Phase 4d: config 3 driven, checked and timed; launch counts and the ola_norm entry."""
+    import scipy.signal
+    import torch.nn.functional as F
+
+    from librosa_tpu_torch.core import spectrum
+    from librosa_tpu_torch.entry import reconstruction
+    from librosa_tpu_torch.ops import db_scale, fused_stft, ola_norm
+
+    n_fft, hop = RECON["n_fft"], RECON["hop_length"]
+    win64 = np.asarray(win, dtype=np.float64)
+    forward, _ = reconstruction()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    fused_stft.launches = 0
+    db_scale.launches = 0
+    ola_norm.launches = 0
+    y16k, y_hat = forward(y)
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "ola_norm": ola_norm.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n16 = y16k.shape[-1]
+    n_frames = 1 + n16 // hop
+    print(f"reconstruction: y {tuple(y.shape)} -> y16k {tuple(y16k.shape)} -> y_hat "
+          f"{tuple(y_hat.shape)} over {n_frames} frames, 32 rounds; launches {counts}; peak "
+          f"memory {peak_bytes} bytes, {peak_bytes - base_bytes} above the {base_bytes} held "
+          f"before the call")
+    if counts != {"stft_mel": 1, "db_scale": 0, "ola_norm": 33}:
+        raise AssertionError(f"reconstruction launched {counts}, expected 1, 0 and 33")
+    want_n = -(-MAIN_SHAPE[1] * 320 // 441)
+    if tuple(y16k.shape) != (MAIN_SHAPE[0], want_n) or tuple(y_hat.shape) != tuple(y16k.shape):
+        raise AssertionError(f"reconstruction shapes {tuple(y16k.shape)}, {tuple(y_hat.shape)}")
+    if not (torch.isfinite(y16k).all() and torch.isfinite(y_hat).all()):
+        raise AssertionError("non-finite values on the reconstruction path")
+
+    # resample against scipy in float64
+    for track in (0, MAIN_SHAPE[0] - 1):
+        want = scipy.signal.resample_poly(y[track].cpu().numpy().astype(np.float64), 320, 441)
+        s = snr_db(y16k[track].cpu().numpy(), want)
+        print(f"resample 22050 -> 16000 track {track} vs float64 scipy resample_poly: {s:.1f} dB")
+        if not s >= MIN_RESAMPLE_SNR_DB:
+            raise AssertionError(f"resample track {track}: {s:.1f} dB < {MIN_RESAMPLE_SNR_DB}")
+
+    # istft(stft(y)) is y
+    D = L.stft(y16k, **RECON)
+    back = L.istft(D, hop_length=hop, length=n16)
+    err = (back - y16k).double().square().sum(dim=-1)
+    trip = 10 * torch.log10(y16k.double().square().sum(dim=-1) / err.clamp(min=1e-300))
+    print(f"istft(stft(y16k)) vs y16k, per track: min {float(trip.min()):.1f} dB, max "
+          f"{float(trip.max()):.1f} dB")
+    if not float(trip.min()) >= MIN_ROUNDTRIP_SNR_DB:
+        raise AssertionError(f"round trip {float(trip.min()):.1f} dB < {MIN_ROUNDTRIP_SNR_DB}")
+    del back, err
+
+    # the stft_mel kernel (identity basis, power 1) as this path calls it: rows of n16 floats,
+    # so every odd track starts 8 bytes off a 16-byte boundary, and one frame past a multiple
+    # of the kernel's frame tile; against its plain version and against float64
+    win_d = spectrum._win_device("hann", n_fft, n_fft, device, torch.float32)
+    poison(torch, (MAIN_SHAPE[0], 1 + n_fft // 2, n_frames), device)
+    before = fused_stft.launches
+    S, _ = spectrum._spectrogram(y=y16k, power=1, **RECON)
+    if fused_stft.launches != before + 1:
+        raise AssertionError("_spectrogram on the resampled batch did not launch stft_mel")
+    if tuple(S.shape) != (MAIN_SHAPE[0], 1 + n_fft // 2, n_frames):
+        raise AssertionError(f"|STFT| of the resampled batch has shape {tuple(S.shape)}")
+    if not bool(torch.isfinite(S).all()):
+        raise AssertionError("stft_mel on the resampled batch left values unwritten")
+    plain = spectrum._stft_power_core(y16k, win_d, power=1.0, center=True, pad_mode="constant",
+                                      **RECON)
+    err = (S - plain).double().square().sum(dim=(-2, -1))
+    sig = plain.double().square().sum(dim=(-2, -1))
+    k1_tracks = 10 * torch.log10(sig / err.clamp(min=1e-300))
+    k1_last = snr_t(torch, S[..., -1], plain[..., -1])
+    k1_max_err = float((S - plain).abs().max())
+    del plain, err, sig
+    k1_f64 = [snr_db(S[track].cpu().numpy(),
+                     spec64(y16k[track].cpu().numpy(), win64, n_fft=n_fft, hop=hop))
+              for track in (0, 1, MAIN_SHAPE[0] - 1)]
+    print(f"stft_mel (identity basis, power 1) on y16k {tuple(y16k.shape)} -> {tuple(S.shape)}, "
+          f"{n_frames % 8} frame(s) past a multiple of 8, the kernel's rows {4 * n16} bytes "
+          f"({4 * n16 % 16} past a 16-byte boundary; y16k itself has a row stride of "
+          f"{4 * y16k.stride(0)} bytes and is made contiguous for the kernel): per track vs plain min "
+          f"{float(k1_tracks.min()):.1f} dB (even tracks {float(k1_tracks[0::2].min()):.1f}, odd "
+          f"tracks {float(k1_tracks[1::2].min()):.1f}), last frame {k1_last:.1f} dB, max |err| "
+          f"{k1_max_err:.3e}; tracks 0, 1, 15 vs float64 numpy "
+          + ", ".join(f"{s:.1f}" for s in k1_f64) + f" dB (floor {MIN_SNR_POWER1_DB})")
+    if not (float(k1_tracks.min()) >= MIN_SNR_POWER1_DB and k1_last >= MIN_SNR_POWER1_DB
+            and min(k1_f64) >= MIN_SNR_POWER1_DB):
+        raise AssertionError(f"stft_mel on the resampled batch: {float(k1_tracks.min()):.1f} dB "
+                             f"vs plain, last frame {k1_last:.1f} dB, vs float64 {k1_f64}")
+
+    # four rounds from zero phase on one track against the float64 loop
+    got = L.griffinlim(S[0], n_iter=4, init=None, length=n16, **RECON)
+    want = griffinlim64(S[0].cpu().numpy(), win64, n_iter=4, n_fft=n_fft, hop=hop, length=n16)
+    gl_snr = snr_db(got.cpu().numpy(), want)
+    print(f"griffinlim init=None, 4 rounds, track 0 vs a float64 numpy loop: {gl_snr:.1f} dB")
+    if not gl_snr >= MIN_GL_SNR_DB:
+        raise AssertionError(f"griffinlim vs float64: {gl_snr:.1f} dB < {MIN_GL_SNR_DB}")
+
+    # random phases: what the function promises
+    def convergence(signal):
+        rebuilt, _ = spectrum._spectrogram(y=signal, power=1, **RECON)
+        return float(torch.linalg.vector_norm(rebuilt - S) / torch.linalg.vector_norm(S))
+
+    conv32 = convergence(y_hat)
+    y_hat4 = L.griffinlim(S, n_iter=4, rng=0, length=n16, **RECON)
+    conv4 = convergence(y_hat4)
+    conv0 = convergence(L.griffinlim(S, n_iter=0, rng=0, length=n16, **RECON))
+    del y_hat4
+    print(f"griffinlim init='random' spectral convergence || |stft(y_hat)| - S || / || S ||: "
+          f"{conv0:.6f} after 0 rounds, {conv4:.6f} after 4, {conv32:.6f} after 32 "
+          f"(limit {MAX_CONVERGENCE_32})")
+    if not (conv32 < MAX_CONVERGENCE_32 and conv32 < conv4 < conv0):
+        raise AssertionError(f"griffinlim convergence {conv0:.4f}, {conv4:.4f}, {conv32:.4f}")
+    again = forward(y)[1]
+    if not torch.equal(again, y_hat):
+        raise AssertionError("the same seed gave two different reconstructions")
+    print("reconstruction with the same seed twice: bit-equal")
+    del again, y_hat
+
+    # the synthesis kernel at the path's shape, against its plain version
+    frames, (win_d, wss, _, _), _, start = ola_inputs(torch, spectrum, D,
+                                                     dict(hop_length=hop, length=n16))
+    poison(torch, (MAIN_SHAPE[0], n16), device)
+    k_out = ola_norm.ola_norm(frames, win_d, wss, hop_length=hop, start=start)
+    p_out = ola_norm.ola_norm_reference(frames, win_d, wss, hop_length=hop, start=start)
+    if not bool(torch.isfinite(k_out).all()):
+        raise AssertionError("ola_norm at the path's shape left values unwritten")
+    max_abs_err = float((k_out - p_out).abs().max())
+    ola_snr = snr_t(torch, k_out, p_out)
+    print(f"ola_norm vs plain at the path's shape {tuple(frames.shape)} -> {tuple(k_out.shape)}: "
+          f"{ola_snr:.1f} dB, max |err| {max_abs_err:.3e} "
+          f"({'bit-equal' if torch.equal(k_out, p_out) else 'not bit-equal'})")
+    if not ola_snr >= MIN_OLA_PLAIN_SNR_DB:
+        raise AssertionError(f"ola_norm at the path's shape: {ola_snr:.1f} dB")
+    del k_out, p_out
+
+    # times
+    ola_ms = time_ms(torch, lambda: ola_norm.ola_norm(frames, win_d, wss, hop_length=hop,
+                                                      start=start), 10)
+    plain_ms = time_ms(torch, lambda: ola_norm.ola_norm_reference(frames, win_d, wss,
+                                                                 hop_length=hop, start=start), 3)
+    # yardstick for the overlap-add alone: F.fold of frames already windowed and transposed
+    columns = (frames * win_d).transpose(-2, -1).contiguous()
+    full_len = n_fft + hop * (frames.shape[-2] - 1)
+    fold_ms = time_ms(torch, lambda: F.fold(columns, (1, full_len), (1, n_fft),
+                                            stride=(1, hop)), 3)
+    del columns
+    bound_bytes = 4 * (frames.numel() + win_d.numel() + wss.numel() + MAIN_SHAPE[0] * n16)
+    bound_ms = 1e3 * bound_bytes / H100_HBM_BYTES_S
+    del frames
+    irfft_ms = time_ms(torch, lambda: torch.fft.irfft(D.transpose(-2, -1), n=n_fft, dim=-1), 5)
+    istft_ms = time_ms(torch, lambda: L.istft(D, hop_length=hop, length=n16), 5)
+    stft_ms = time_ms(torch, lambda: L.stft(y16k, **RECON), 5)
+    # as inside griffinlim: every operand in stft's time-major layout
+    estimate, tprev = D.clone(), D * 0.5
+    S_tm = S.transpose(-2, -1).contiguous().transpose(-2, -1)
+    update_ms = time_ms(torch, lambda: spectrum._phase_update(estimate, D, tprev, S_tm,
+                                                              0.99 / 1.99), 5)
+    del estimate, tprev, D, S_tm
+    resample_ms = time_ms(torch, lambda: L.resample(y, orig_sr=SR, target_sr=RECON_SR,
+                                                    res_type="polyphase"), 5)
+    spec_ms = time_ms(torch, lambda: spectrum._spectrogram(y=y16k, power=1, **RECON), 5)
+    gl_ms = time_ms(torch, lambda: L.griffinlim(S, n_iter=32, rng=0, length=n16, **RECON), 1,
+                    groups=2)
+    del S
+    e2e_ms = time_ms(torch, lambda: forward(y), 1, groups=2)
+    samples = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    print(f"reconstruction end to end: {e2e_ms:.4f} ms, {samples / (e2e_ms / 1e3):.6e} input "
+          f"samples/s on {MAIN_SHAPE}; alone: resample {resample_ms:.4f} ms, |STFT| by the "
+          f"stft_mel kernel {spec_ms:.4f} ms, griffinlim (32 rounds) {gl_ms:.4f} ms")
+    print(f"one round's parts at {tuple(y16k.shape)}: istft {istft_ms:.4f} ms (irfft "
+          f"{irfft_ms:.4f} ms + ola_norm {ola_ms:.4f} ms), stft {stft_ms:.4f} ms, phase update "
+          f"{update_ms:.4f} ms")
+    print(f"ola_norm kernel {ola_ms:.4f} ms, plain torch ops {plain_ms:.4f} ms, F.fold of "
+          f"windowed, transposed frames (the overlap-add alone) {fold_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes: {bound_bytes} read and written once)")
+    entry = {
+        "name": "ola_norm",
+        "route": "cuda",
+        "source": "librosa_tpu_torch/csrc/ola_norm.cu",
+        "replaces": "librosa_tpu/core/spectrum.py:304 _istft_core, lines 304-318 (the tail of "
+                    "an XLA program: no Pallas kernel computes this step)",
+        "launches": counts["ola_norm"],
+        "launches_by_path": {"mel_db_mfcc": 0, "feature_stack": 0,
+                             "reconstruction": counts["ola_norm"]},
+        "max_abs_err": max_abs_err,
+        "ms": ola_ms,
+        "kernel_ms": ola_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "fold_overlap_add_only_ms": fold_ms,
+        "snr_db": ola_snr,
+    }
+    k1 = {"shape": [MAIN_SHAPE[0], n16], "snr_db": float(k1_tracks.min()),
+          "last_frame_snr_db": k1_last, "max_abs_err": k1_max_err, "float64_snr_db": min(k1_f64)}
+    return {"launches": counts, "ola_norm": entry, "stft_mel": k1, "e2e_ms": e2e_ms}
+
+
+def tuning64(S, *, sr, n_fft, fmin=150.0, fmax=4000.0, threshold=0.1, bins_per_octave=12,
+             resolution=TUNING_RESOLUTION):
+    """estimate_tuning of magnitudes ``S`` (tracks, bins, T) in float64 numpy."""
+    S = np.abs(np.asarray(S, dtype=np.float64))
+    avg = np.gradient(S, axis=-2)
+    a = S[:, 2:] + S[:, :-2] - 2 * S[:, 1:-1]
+    b = (S[:, 2:] - S[:, :-2]) / 2
+    shift = np.zeros_like(S)
+    shift[:, 1:-1] = np.where(np.abs(b) >= np.abs(a), 0.0, -b / np.where(a == 0, 1.0, a))
+    freqs = np.fft.rfftfreq(n_fft, 1.0 / sr)[None, :, None]
+    masked = S * (S > threshold * S.max(axis=-2, keepdims=True))
+    peak = np.zeros(S.shape, dtype=bool)
+    peak[:, 1:-1] = (masked[:, 1:-1] > masked[:, :-2]) & (masked[:, 1:-1] >= masked[:, 2:])
+    peak[:, -1] = masked[:, -1] > masked[:, -2]
+    peak &= (fmin <= freqs) & (freqs < fmax)
+    pitch = np.where(peak, (np.arange(S.shape[-2])[None, :, None] + shift) * sr / n_fft, 0.0)
+    mag = np.where(peak, S + 0.5 * avg * shift, 0.0)
+    keep = pitch > 0
+    keep &= mag >= np.median(mag[keep])
+    frac = np.mod(bins_per_octave * np.log2(pitch[keep] / 27.5), 1.0)
+    frac = np.where(frac >= 0.5, frac - 1.0, frac)
+    cells = np.linspace(-0.5, 0.5, int(np.ceil(1.0 / resolution)) + 1)
+    votes = np.histogram(frac, bins=cells)[0]
+    return float(cells[int(np.argmax(votes))])
+
+
+def tuning_phase(torch, L, device, y, win) -> dict:
+    """Phase 4e: estimate_tuning against float64 on tones; chroma_stft with the default tuning."""
+    from librosa_tpu_torch.core import spectrum
+    from librosa_tpu_torch.ops import fused_stft
+
+    n_fft, hop = MAIN["n_fft"], MAIN["hop_length"]
+    # 16 tracks of a harmonic tone each, a semitone apart, all 0.23 semitones sharp
+    detune, n = 0.23, 1 << 18
+    t = torch.arange(n, device=device, dtype=torch.float64) / SR
+    f0 = 220.0 * 2.0 ** ((torch.arange(16, device=device, dtype=torch.float64) + detune) / 12)
+    tones = sum(torch.sin(2 * np.pi * (k + 1) * f0[:, None] * t) / (k + 1) for k in range(4))
+    gen = torch.Generator(device=device).manual_seed(2)
+    tones = (0.3 * tones).float() + 0.003 * torch.randn((16, n), generator=gen, device=device)
+    got = L.estimate_tuning(y=tones, sr=SR)
+    spec = np.stack([spec64(track, win, n_fft=n_fft, hop=hop) for track in tones.cpu().numpy()])
+    want = tuning64(spec, sr=SR, n_fft=n_fft)
+    print(f"estimate_tuning on 16 tones {detune} semitones sharp: {got:+.2f}, float64 numpy "
+          f"{want:+.2f}")
+    if not (abs(got - want) <= TUNING_RESOLUTION + 1e-9 and abs(got - detune) <= 0.03):
+        raise AssertionError(f"estimate_tuning {got} against float64 {want}, tones at {detune}")
+    # a callable ref other than a maximum: a torch reduction on the card, never a host copy
+    S_t = L.stft(tones[:2], n_fft=n_fft, hop_length=hop).abs()
+    p_card, _ = L.piptrack(S=S_t, sr=SR, ref=torch.mean)
+    p_host, _ = L.piptrack(S=S_t.cpu(), sr=SR, ref=np.mean)
+    same = float(((p_card > 0).cpu() == (p_host > 0)).double().mean())
+    try:
+        L.piptrack(S=S_t, sr=SR, ref=np.mean)
+    except L.ParameterError:
+        refused = True
+    else:
+        refused = False
+    print(f"piptrack ref=torch.mean on the card vs ref=np.mean on the host, same magnitudes: "
+          f"peaks agree in {100 * same:.4f} % of {p_host.numel()} cells; np.mean on a CUDA "
+          f"tensor {'raises' if refused else 'does not raise'}")
+    if not (p_card.is_cuda and same >= 0.9999 and refused):
+        raise AssertionError(f"piptrack with a callable ref: {same} of the cells agree, "
+                             f"refused={refused}")
+    del tones, spec, S_t, p_card, p_host
+
+    # chroma_stft with the default tuning on the main buffer, against float64 at that tuning
+    fused_stft.launches = 0
+    chroma = L.feature.chroma_stft(y=y, sr=SR, n_fft=n_fft, hop_length=hop)
+    torch.cuda.synchronize()
+    launches = fused_stft.launches
+    S, _ = spectrum._spectrogram(y=y, power=2, n_fft=n_fft, hop_length=hop)
+    tuning = L.estimate_tuning(S=S, sr=SR, bins_per_octave=12)
+    del S
+    n_frames = 1 + MAIN_SHAPE[1] // hop
+    if tuple(chroma.shape) != (MAIN_SHAPE[0], 12, n_frames) or launches != 1:
+        raise AssertionError(f"chroma_stft default tuning: shape {tuple(chroma.shape)}, "
+                             f"{launches} stft_mel launches")
+    basis = np.asarray(L.filters.chroma(sr=SR, n_fft=n_fft, tuning=tuning), np.float64)
+    for track in (0, MAIN_SHAPE[0] - 1):
+        ref = basis @ spec64(y[track].cpu().numpy(), win, n_fft=n_fft, hop=hop) ** 2
+        ref = ref / np.maximum(ref.max(axis=0, keepdims=True), np.finfo(np.float32).tiny)
+        s = snr_db(chroma[track].cpu().numpy(), ref)
+        print(f"chroma_stft with the estimated tuning {tuning:+.2f}, track {track} vs float64 "
+              f"numpy at that tuning: {s:.1f} dB")
+        if not s >= MIN_CHROMA_SNR_DB:
+            raise AssertionError(f"chroma_stft default tuning, track {track}: {s:.1f} dB")
+    del chroma
+    tuning_ms = time_ms(torch, lambda: L.estimate_tuning(y=y, sr=SR), 1, groups=2)
+    S, _ = spectrum._spectrogram(y=y, power=1, n_fft=n_fft, hop_length=hop)
+    piptrack_ms = time_ms(torch, lambda: L.piptrack(S=S, sr=SR), 1, groups=2)
+    from_S_ms = time_ms(torch, lambda: L.estimate_tuning(S=S, sr=SR), 1, groups=2)
+    pitch, mag = L.piptrack(S=S, sr=SR)
+    del S
+    voiced = int((pitch > 0).sum())
+    vote_ms = time_ms(torch, lambda: L.pitch_tuning(pitch), 1, groups=2)
+    del pitch, mag
+    chroma_ms = time_ms(torch, lambda: L.feature.chroma_stft(y=y, sr=SR, n_fft=n_fft,
+                                                             hop_length=hop), 1, groups=2)
+    print(f"estimate_tuning from y on {MAIN_SHAPE}: {tuning_ms:.4f} ms; from the magnitude "
+          f"{from_S_ms:.4f} ms, of which piptrack {piptrack_ms:.4f} ms ({voiced} peaks of "
+          f"{MAIN_SHAPE[0] * 1025 * n_frames} cells) and pitch_tuning over all cells "
+          f"{vote_ms:.4f} ms; chroma_stft with the default tuning: {chroma_ms:.4f} ms (one "
+          f"stft_mel launch, identity basis)")
+    return {"tuning_ms": tuning_ms, "chroma_ms": chroma_ms}
+
+
 def main() -> int:
     import torch
 
@@ -780,14 +1259,19 @@ def main() -> int:
     db_entry = db_kernel_phase(torch, L, rng, device, db_in)
     del db_in
     stack = feature_stack_phase(torch, L, device, y, win, mel_basis, kernel_ms)
+    ola_kernel_phase(torch, L, rng, device)
+    recon = reconstruction_phase(torch, L, device, y, win)
+    tuning_phase(torch, L, device, y, win)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
         "source": "librosa_tpu_torch/csrc/stft_mel.cu",
         "replaces": "librosa_tpu/ops/pallas_stft.py:487",
-        "launches": main_launches + stack["launches"]["stft_mel"],
+        "launches": (main_launches + stack["launches"]["stft_mel"]
+                     + recon["launches"]["stft_mel"]),
         "launches_by_path": {"mel_db_mfcc": main_launches,
-                             "feature_stack": stack["launches"]["stft_mel"]},
+                             "feature_stack": stack["launches"]["stft_mel"],
+                             "reconstruction": recon["launches"]["stft_mel"]},
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -797,12 +1281,15 @@ def main() -> int:
         "library_ms": library_ms,
         "snr_db": main_snr,
         "other_bases": stack["bases"],
+        "reconstruction_shape": recon["stft_mel"],
     }
     db_entry["launches"] = main_db_launches + stack["launches"]["db_scale"]
     db_entry["launches_by_path"] = {"mel_db_mfcc": main_db_launches,
-                                    "feature_stack": stack["launches"]["db_scale"]}
+                                    "feature_stack": stack["launches"]["db_scale"],
+                                    "reconstruction": recon["launches"]["db_scale"]}
     diag_entries = staged_diagnostics(torch, device, y, kernel_ms)
-    print(json.dumps({"kernels": [stft_mel_entry, db_entry, *diag_entries]}))
+    print(json.dumps({"kernels": [stft_mel_entry, db_entry, recon["ola_norm"],
+                                  *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

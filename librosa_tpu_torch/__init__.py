@@ -1,11 +1,14 @@
 """librosa_tpu_torch: audio and music analysis on PyTorch and CUDA.
 
 The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
-(flat ``stft``, ``magphase``, ``power_to_db``, ``amplitude_to_db`` and their
-inverses, ``perceptual_weighting``; ``feature.melspectrogram``,
+(flat ``stft``, ``istft``, ``griffinlim``, ``magphase``, ``power_to_db``,
+``amplitude_to_db`` and their inverses, ``perceptual_weighting``, ``resample``,
+``piptrack``, ``pitch_tuning``, ``estimate_tuning``, ``tone``, ``chirp``,
+``clicks``; ``feature.melspectrogram``,
 ``feature.mfcc``, ``feature.chroma_stft``, ``feature.spectral_centroid``,
 ``feature.spectral_rolloff``, ``feature.rms``; ``filters.mel``,
-``filters.chroma``, ``filters.get_window``; ``util.normalize`` and friends)
+``filters.chroma``, ``filters.get_window``, ``filters.window_sumsquare``;
+``util.normalize`` and friends)
 and the same array layout: time on the last axis, bins on axis -2, any
 leading dims.
 
@@ -13,17 +16,20 @@ Inputs that are not tensors go to the default device, ``cuda`` unless
 :func:`set_device` chose another; tensors stay where they are. On the card
 ``|STFT|**power`` projected onto a basis (mel, chroma, or the identity for a
 plain spectrogram) runs as one hand-written CUDA kernel
-(``csrc/stft_mel.cu``) and decibel scaling as another
-(``csrc/db_scale.cu``); on the CPU each function runs its plain PyTorch
+(``csrc/stft_mel.cu``), decibel scaling as another (``csrc/db_scale.cu``)
+and the synthesis step of the inverse STFT as a third
+(``csrc/ola_norm.cu``); on the CPU each function runs its plain PyTorch
 version.
 """
 
 from __future__ import annotations
 
 from ._device import get_device, set_device  # noqa: F401
+from .core.audio import *  # noqa: F401,F403
 from .core.convert import *  # noqa: F401,F403
+from .core.pitch import *  # noqa: F401,F403
 from .core.spectrum import *  # noqa: F401,F403
 from .util.exceptions import LibrosaError, ParameterError  # noqa: F401
 from .version import show_versions, version as __version__  # noqa: F401
 
-from . import core, feature, filters, ops, util  # noqa: F401
+from . import core, feature, filters, io, ops, util  # noqa: F401

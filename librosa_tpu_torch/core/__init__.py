@@ -1,4 +1,6 @@
-"""Core layer: unit conversions and spectral transforms."""
+"""Core layer: unit conversions, spectral transforms, resampling and pitch."""
 
+from .audio import *  # noqa: F401,F403
 from .convert import *  # noqa: F401,F403
+from .pitch import *  # noqa: F401,F403
 from .spectrum import *  # noqa: F401,F403

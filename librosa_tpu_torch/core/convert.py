@@ -14,7 +14,8 @@ import numpy as np
 from ..util.exceptions import ParameterError
 
 __all__ = [
-    "hz_to_mel", "mel_to_hz", "fft_frequencies", "mel_frequencies",
+    "hz_to_mel", "mel_to_hz", "hz_to_octs", "octs_to_hz", "hz_to_midi", "midi_to_hz",
+    "frames_to_samples", "time_to_samples", "fft_frequencies", "mel_frequencies",
     "A_weighting", "B_weighting", "C_weighting", "D_weighting", "Z_weighting",
     "frequency_weighting",
 ]
@@ -53,6 +54,44 @@ def mel_to_hz(mels: Any, *, htk: bool = False) -> np.ndarray:
     elif log_region:
         freqs = _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL))
     return freqs
+
+
+def hz_to_octs(frequencies: Any, *, tuning: float = 0.0,
+               bins_per_octave: int = 12) -> np.ndarray:
+    """Frequencies in Hz to octaves above ``A440 / 16``.
+
+    ``tuning`` moves A440 by that fraction of one of ``bins_per_octave`` bins.
+    """
+    a440 = 440.0 * 2.0 ** (tuning / bins_per_octave)
+    return np.log2(np.asanyarray(frequencies) / (float(a440) / 16))
+
+
+def octs_to_hz(octs: Any, *, tuning: float = 0.0, bins_per_octave: int = 12) -> np.ndarray:
+    """Octaves above ``A440 / 16`` to frequencies in Hz; the inverse of :func:`hz_to_octs`."""
+    a440 = 440.0 * 2.0 ** (tuning / bins_per_octave)
+    return (float(a440) / 16) * (2.0 ** np.asanyarray(octs))
+
+
+def midi_to_hz(notes: Any) -> np.ndarray:
+    """MIDI note numbers to Hz: note 69 is A440, a step is an equal-tempered semitone."""
+    return 440.0 * (2.0 ** ((np.asanyarray(notes) - 69.0) / 12.0))
+
+
+def hz_to_midi(frequencies: Any) -> np.ndarray:
+    """Frequencies in Hz to (fractional) MIDI note numbers; the inverse of :func:`midi_to_hz`."""
+    return 12 * (np.log2(np.asanyarray(frequencies)) - np.log2(440.0)) + 69
+
+
+def frames_to_samples(frames: Any, *, hop_length: int = 512,
+                      n_fft: Optional[int] = None) -> np.ndarray:
+    """Frame indices to sample indices, offset by ``n_fft // 2`` for centred frames."""
+    offset = 0 if n_fft is None else int(n_fft // 2)
+    return (np.asanyarray(frames) * hop_length + offset).astype(int)
+
+
+def time_to_samples(times: Any, *, sr: float = 22050) -> np.ndarray:
+    """Times in seconds to sample indices, rounded toward zero."""
+    return (np.asanyarray(times) * sr).astype(int)
 
 
 def fft_frequencies(*, sr: float = 22050, n_fft: int = 2048) -> np.ndarray:

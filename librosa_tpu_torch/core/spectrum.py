@@ -1,4 +1,5 @@
-"""Spectral engine of the port: STFT, the fused STFT-basis route, dB scaling.
+"""Spectral engine of the port: STFT and its inverse, Griffin-Lim, the fused STFT-basis route,
+dB scaling.
 
 Layout as in the JAX package: frequency on axis -2, time on axis -1, any
 leading dims.
@@ -15,15 +16,16 @@ import torch
 from .. import filters
 from .._device import as_tensor, device_table
 from ..ops import db_scale as _db
+from ..ops import ola_norm as _ola
 from ..ops.fft import frames_rdft
 from ..ops.framing import frame_signal
 from ..ops.fused_stft import _fused, frames_power, kernel_refusal, stft_mel_reference
 from ..util.exceptions import ParameterError
-from ..util.utils import pad_last
+from ..util.utils import _torch_dtype, dtype_c2r, dtype_r2c, pad_last, tiny
 from .convert import frequency_weighting
 
 __all__ = [
-    "stft", "magphase", "power_to_db", "db_to_power", "amplitude_to_db", "db_to_amplitude",
+    "stft", "istft", "griffinlim", "magphase", "power_to_db", "db_to_power", "amplitude_to_db", "db_to_amplitude",
     "perceptual_weighting", "_spectrogram",
 ]
 
@@ -142,6 +144,241 @@ def stft(
     S = _stft_core(y, window_dev, n_fft=n_fft, hop_length=hop_length, center=center,
                    pad_mode=pad_mode)
     return S if dtype is None else S.to(dtype)
+
+
+def _wss_device(window: Any, *, n_frames: int, win_length: int, n_fft: int, hop_length: int,
+                start: int, out_len: int, device: torch.device,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The window's sum-of-squares envelope from sample ``start``, ``out_len`` long, on ``device``.
+
+    Cut or zero-padded at the end to ``out_len``. A window given by name,
+    tuple or scalar has its envelope cached on the device per configuration;
+    one given as samples or as a callable is summed and uploaded each call.
+    """
+    def make() -> np.ndarray:
+        wss = filters.window_sumsquare(
+            window=window, n_frames=n_frames, win_length=win_length, n_fft=n_fft,
+            hop_length=hop_length, dtype=np.float64)[start:start + out_len]
+        return np.pad(wss, (0, out_len - len(wss)))
+
+    if isinstance(window, (str, tuple)) or np.isscalar(window):
+        return device_table(("wss", window, n_frames, win_length, n_fft, hop_length, start,
+                             out_len), make, device, dtype)
+    return torch.tensor(make(), dtype=dtype, device=device)
+
+
+def _istft_core(S: torch.Tensor, window: torch.Tensor, wss: torch.Tensor, *, n_fft: int,
+                hop_length: int, n_frames: int, start: int) -> torch.Tensor:
+    """``irfft`` of the first ``n_frames`` columns, then window, overlap-add, trim, normalise.
+
+    The inverse transform is ``torch.fft.irfft``. What follows it is one
+    function, ``ops/ola_norm.py``: contiguous float32 frames go to
+    :func:`ola_norm`, which launches the CUDA kernel on a CUDA tensor and
+    raises if that fails; everything else (float64) takes the plain
+    version, by the kernel's predicate and never by catching an error.
+    The output has ``wss``'s length.
+    """
+    frames = torch.fft.irfft(S[..., :n_frames].transpose(-2, -1), n=n_fft, dim=-1)
+    if frames.dtype != window.dtype:
+        frames = frames.to(window.dtype)
+    if _ola.kernel_refusal(frames, window, wss, hop_length) is None:
+        return _ola.ola_norm(frames, window, wss, hop_length=hop_length, start=start)
+    return _ola.ola_norm_reference(frames, window, wss, hop_length=hop_length, start=start)
+
+
+def _istft_geometry(shape: Tuple[int, ...], *, n_fft: Optional[int], win_length: Optional[int],
+                    hop_length: Optional[int], center: bool,
+                    length: Optional[int]) -> Tuple[int, int, int, int, int, int]:
+    """``(n_fft, win_length, hop_length, n_frames, start, out_len)`` of an inverse STFT.
+
+    Defaults resolved from the spectrogram's ``shape``; ``n_frames`` columns
+    are transformed (those that reach into ``length`` samples, where given),
+    and the output is ``out_len`` samples of the overlap-add from sample
+    ``start`` on.
+    """
+    if n_fft is None:
+        n_fft = 2 * (shape[-2] - 1)
+    if win_length is None:
+        win_length = n_fft
+    if hop_length is None:
+        hop_length = int(win_length // 4)
+    if hop_length <= 0:
+        raise ParameterError(f"hop_length={hop_length} must be a positive integer")
+    n_frames = shape[-1]
+    if length:
+        padded_length = length + 2 * (n_fft // 2) if center else length
+        n_frames = min(n_frames, -(-padded_length // hop_length))
+    out_len = n_fft + hop_length * (n_frames - 1)
+    if length:
+        out_len = int(length)
+    elif center:
+        out_len -= 2 * (n_fft // 2)
+    return n_fft, win_length, hop_length, n_frames, n_fft // 2 if center else 0, out_len
+
+
+def istft(
+    stft_matrix: Any,
+    *,
+    hop_length: Optional[int] = None,
+    win_length: Optional[int] = None,
+    n_fft: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    dtype: Any = None,
+    length: Optional[int] = None,
+) -> torch.Tensor:
+    """Inverse STFT by windowed overlap-add: ``(..., 1 + n_fft // 2, T)`` complex -> ``(..., n)``.
+
+    The least-squares signal of a (possibly modified) STFT: each column's
+    inverse real FFT times the synthesis window, summed at ``hop_length``
+    and divided by the window's sum-of-squares envelope wherever that is
+    not degenerate. ``n_fft`` defaults to ``2 * (rows - 1)``, ``win_length``
+    to ``n_fft`` and ``hop_length`` to ``win_length // 4``; ``window`` must
+    be the analysis window. ``center`` removes the ``n_fft // 2`` samples of
+    padding from both ends. ``length`` fixes the output length: frames that
+    lie wholly beyond it are not transformed, and the signal is zero-padded
+    where the frames end short. The output is float32 for complex64 input
+    and float64 for complex128, or ``dtype`` (torch or numpy, real).
+
+    After ``torch.fft.irfft``, float32 frames on the card run as one CUDA
+    kernel (``csrc/ola_norm.cu``).
+    """
+    S = as_tensor(stft_matrix)
+    n_fft, win_length, hop_length, n_frames, start, out_len = _istft_geometry(
+        S.shape, n_fft=n_fft, win_length=win_length, hop_length=hop_length, center=center,
+        length=length)
+    dtype = dtype_c2r(S.dtype) if dtype is None else _torch_dtype(dtype)
+    work = dtype if dtype in (torch.float32, torch.float64) else torch.float32
+    window_dev = _win_device(window, win_length, n_fft, S.device, work)
+    wss = _wss_device(window, n_frames=n_frames, win_length=win_length, n_fft=n_fft,
+                      hop_length=hop_length, start=start, out_len=out_len, device=S.device,
+                      dtype=work)
+    y = _istft_core(S, window_dev, wss, n_fft=n_fft, hop_length=hop_length, n_frames=n_frames,
+                    start=start)
+    return y.to(dtype)
+
+
+def _griffinlim_seed(rng: Any) -> int:
+    """The integer seed that ``rng`` (None, an int, a numpy Generator or RandomState) stands for."""
+    if rng is None:
+        return 0
+    if isinstance(rng, (int, np.integer)):
+        return int(rng)
+    if isinstance(rng, np.random.RandomState):
+        return int(rng.randint(2**31))
+    return int(np.random.default_rng(rng).integers(2**31))
+
+
+def _griffinlim_init(shape: Tuple[int, ...], seed: int, init: Optional[str],
+                     device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The first phases ``(..., T, bins)``: unit phasors at uniform random angles, or all ones.
+
+    The angles come from a ``torch.Generator`` on ``device`` seeded with
+    ``seed``: the same seed gives the same phases on the same kind of
+    device, and not those that any other library draws from it.
+    """
+    if init == "random":
+        gen = torch.Generator(device=device).manual_seed(seed)
+        phase = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+        phase.mul_(2 * np.pi)
+        return torch.complex(torch.cos(phase), torch.sin(phase)).to(dtype)
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def griffinlim(
+    S: Any,
+    *,
+    n_iter: int = 32,
+    hop_length: Optional[int] = None,
+    win_length: Optional[int] = None,
+    n_fft: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    dtype: Any = None,
+    length: Optional[int] = None,
+    pad_mode: str = "constant",
+    momentum: float = 0.99,
+    init: Optional[str] = "random",
+    rng: Any = None,
+    random_state: Any = None,
+) -> torch.Tensor:
+    """A signal whose STFT magnitude approximates ``S`` ``(..., 1 + n_fft // 2, T)``, by Griffin-Lim.
+
+    Starting from random phases (``init='random'``) or zero phase
+    (``init=None``), ``n_iter`` rounds of :func:`istft` then :func:`stft`
+    re-estimate the phases, each round's estimate pushed past the last by
+    ``momentum`` (0: the classic algorithm; above 1 warns, below 0 raises).
+    ``rng`` seeds the random phases: an int, a numpy ``Generator`` or
+    ``RandomState`` (one integer is drawn from it), or None for seed 0;
+    ``random_state`` is its deprecated name. The other arguments are
+    :func:`stft`'s and :func:`istft`'s.
+
+    Everything stays on ``S``'s device. The loop holds the magnitudes, the
+    current estimate ``S * phases`` and the last two rebuilt spectra, all in
+    the layout :func:`stft` writes (time-major memory under a ``(bins, T)``
+    view), and updates the estimate in place (:func:`_phase_update`).
+    """
+    if random_state is not None:
+        if rng is not None:
+            raise ParameterError(
+                f"Both random_state={random_state!r} and rng={rng!r} were "
+                "provided. Please use only the rng parameter."
+            )
+        warnings.warn("random_state is deprecated; use rng instead", FutureWarning,
+                      stacklevel=2)
+        rng = random_state
+    if momentum > 1:
+        warnings.warn(
+            f"Griffin-Lim with momentum={momentum} > 1 can be unstable. "
+            "Proceed with caution!",
+            stacklevel=2,
+        )
+    elif momentum < 0:
+        raise ParameterError(f"griffinlim() called with momentum={momentum} < 0")
+    if init not in ("random", None):
+        raise ParameterError(f"init={init} must either None or 'random'")
+
+    S = as_tensor(S)
+    if S.dtype not in (torch.float32, torch.float64):
+        S = S.to(torch.float32)
+    if n_fft is None:
+        n_fft = 2 * (S.shape[-2] - 1)
+    seed = _griffinlim_seed(rng)
+    inverse_kw = dict(hop_length=hop_length, win_length=win_length, n_fft=n_fft, window=window,
+                      center=center, dtype=dtype, length=length)
+    forward_kw = dict(n_fft=n_fft, hop_length=hop_length, win_length=win_length, window=window,
+                      center=center, pad_mode=pad_mode)
+
+    # stft's output is a (bins, T) view of time-major memory; keep every tensor of the
+    # loop in that layout so that each elementwise pass runs over matching strides
+    S = S.transpose(-2, -1).contiguous().transpose(-2, -1)
+    time_major = (*S.shape[:-2], S.shape[-1], S.shape[-2])
+    estimate = _griffinlim_init(time_major, seed, init, S.device,
+                                dtype_r2c(S.dtype)).transpose(-2, -1)
+    estimate.mul_(S)  # the phases are kept as the spectrum estimate S * phases
+    rebuilt = None
+    for _ in range(n_iter):
+        tprev = rebuilt
+        rebuilt = stft(istft(estimate, **inverse_kw), **forward_kw)
+        if rebuilt.dtype != estimate.dtype:
+            rebuilt = rebuilt.to(estimate.dtype)
+        _phase_update(estimate, rebuilt, tprev, S, momentum / (1 + momentum))
+    return istft(estimate, **inverse_kw)
+
+
+def _phase_update(estimate: torch.Tensor, rebuilt: torch.Tensor, tprev: Optional[torch.Tensor],
+                  S: torch.Tensor, weight: float) -> None:
+    """One Griffin-Lim update, in place: ``estimate <- S * unit(rebuilt - weight * tprev)``.
+
+    ``unit(z) = z / (|z| + tiny)``; ``tprev`` None stands for zeros. Four
+    passes over the complex tensor and one real temporary, no complex one.
+    """
+    if tprev is None:
+        estimate.copy_(rebuilt)
+    else:
+        torch.add(rebuilt, tprev, alpha=-weight, out=estimate)
+    estimate.div_(estimate.abs().add_(tiny(estimate)))
+    estimate.mul_(S)
 
 
 def magphase(D: Any, *, power: float = 1) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,12 +10,13 @@ import torch
 from .. import filters
 from .._device import as_tensor, device_table, exact_f32
 from ..core.convert import fft_frequencies
+from ..core.pitch import estimate_tuning
 from ..core.spectrum import _audio, _spectrogram, _stft_mel_core, _win_device, power_to_db
 from ..ops.framing import frame_signal
 from ..ops.fused_stft import basis_bands
 from ..ops.transforms import dct_matrix
 from ..util.exceptions import ParameterError
-from ..util.utils import expand_to, normalize, pad_last
+from ..util.utils import _torch_dtype, abs2, expand_to, normalize, pad_last
 
 __all__ = ["melspectrogram", "mfcc", "chroma_stft", "spectral_centroid", "spectral_rolloff",
            "rms"]
@@ -150,20 +151,23 @@ def chroma_stft(
     """Chromagram ``(..., n_chroma, T)``: ``|STFT|**2`` folded onto pitch classes, each frame
     scaled to unit ``norm``.
 
-    From ``y``, float32 input that the stft_mel kernel takes runs as that
-    one kernel with the chroma filterbank as its basis, and other input as
-    the kernel's plain version; then :func:`util.normalize` over axis -2. A
-    power spectrogram ``S`` goes through one matrix product in full float32.
-    ``tuning`` is the deviation from A440 in fractions of a chroma bin and
-    must be given: estimating it (``estimate_tuning``) is not ported.
+    ``tuning`` is the deviation from A440 in fractions of a chroma bin.
+    Given it and ``y``, float32 input that the stft_mel kernel takes runs as
+    that one kernel with the chroma filterbank as its basis, and other
+    input as the kernel's plain version; then :func:`util.normalize` over
+    axis -2. A power spectrogram ``S`` goes through one matrix product in
+    full float32. With ``tuning=None`` the power spectrogram is computed
+    once (or taken as given), :func:`core.pitch.estimate_tuning` estimates
+    one tuning for the whole input from it with ``n_chroma`` bins per
+    octave, and the same spectrogram is projected.
     ``kwargs`` go to :func:`filters.chroma` (``ctroct``, ``octwidth``,
     ``norm`` is taken by this function, ``base_c``).
     """
     if tuning is None:
-        raise ParameterError(
-            "chroma_stft needs an explicit tuning (0.0 for A440): estimating it needs "
-            "core.pitch.estimate_tuning, which the port does not have yet"
-        )
+        S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length, power=2,
+                                win_length=win_length, window=window, center=center,
+                                pad_mode=pad_mode)
+        tuning = estimate_tuning(S=S, sr=sr, bins_per_octave=n_chroma)
     fb = dict(tuning=float(tuning), n_chroma=int(n_chroma), **kwargs)
     if S is None:
         if y is None:
@@ -313,14 +317,13 @@ def rms(
     counted once. ``dtype`` (a torch or numpy real dtype) is the type the
     squares are taken in.
     """
-    if not isinstance(dtype, torch.dtype):
-        dtype = getattr(torch, np.dtype(dtype).name)
+    dtype = _torch_dtype(dtype)
     if y is not None:
         y = as_tensor(y)
         if center:
             y = pad_last(y, frame_length // 2, frame_length // 2, mode=pad_mode)
         frames = frame_signal(y, frame_length=int(frame_length), hop_length=int(hop_length))
-        power = _abs2(frames, dtype).mean(dim=-1).unsqueeze(-2)
+        power = abs2(frames, dtype).mean(dim=-1).unsqueeze(-2)
         return power.sqrt()
     if S is None:
         raise ParameterError("Either `y` or `S` must be input.")
@@ -330,7 +333,7 @@ def rms(
             f"Since S.shape[-2] is {S.shape[-2]}, frame_length is expected to be "
             f"{S.shape[-2] * 2 - 2} or {S.shape[-2] * 2 - 1}; found {frame_length}"
         )
-    x = _abs2(S, dtype)
+    x = abs2(S, dtype)
     scale = torch.ones(x.shape[-2], dtype=torch.float32, device=x.device)
     scale[0] = 0.5
     if frame_length % 2 == 0:
@@ -338,9 +341,3 @@ def rms(
     x = x * expand_to(scale, ndim=x.ndim, axes=-2)
     return (2 * x.sum(dim=-2, keepdim=True) / frame_length**2).sqrt()
 
-
-def _abs2(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``|x|**2`` in ``dtype``, from real and imaginary parts for complex input."""
-    if x.is_complex():
-        return (x.real.square() + x.imag.square()).to(dtype)
-    return x.square().to(dtype)

@@ -15,10 +15,11 @@ import numpy as np
 import scipy.signal
 import torch
 
-from .core.convert import fft_frequencies, mel_frequencies
+from .core.convert import fft_frequencies, hz_to_midi, mel_frequencies, midi_to_hz
 from .util.exceptions import ParameterError
 
-__all__ = ["mel", "chroma", "get_window"]
+__all__ = ["mel", "chroma", "get_window", "window_sumsquare", "cq_to_chroma",
+           "diagonal_filter"]
 
 
 def get_window(window: Any, Nx: int, *, fftbins: bool = True) -> np.ndarray:
@@ -181,3 +182,104 @@ def chroma(
     return _chroma_basis(float(sr), int(n_fft), int(n_chroma), float(tuning), float(ctroct),
                          None if octwidth is None else float(octwidth), norm, bool(base_c),
                          np.dtype(dtype).str)
+
+
+def window_sumsquare(
+    *,
+    window: Any,
+    n_frames: int,
+    hop_length: int = 512,
+    win_length: Optional[int] = None,
+    n_fft: int = 2048,
+    dtype: Any = np.float32,
+    norm: Optional[float] = None,
+) -> np.ndarray:
+    """Sum of the squared windows of ``n_frames`` overlapping frames, as a host array.
+
+    ``wss[n] = sum_t w[n - t * hop_length]**2`` over ``n_fft + hop_length *
+    (n_frames - 1)`` samples, the envelope that an inverse STFT divides by.
+    ``window`` has ``win_length`` samples (default ``n_fft``), is scaled to
+    unit ``norm`` first (None: as it is) and centre-padded to ``n_fft``.
+
+    Summed in float64 as ``ceil(n_fft / hop_length)`` shifted adds of one
+    squared window over rows of ``hop_length`` samples, each sample taking
+    its frames in rising order: the cost is that of the output, whatever the
+    number of frames.
+    """
+    if win_length is None:
+        win_length = n_fft
+    n = n_fft + hop_length * (n_frames - 1)
+    win_sq = np.asarray(get_window(window, win_length), dtype=np.float64)
+    if norm is not None:
+        win_sq = _normalize_rows(win_sq[None, :], norm)[0]
+    win_sq = win_sq**2
+    lpad = (n_fft - win_length) // 2
+    n_shifts = -(-n_fft // hop_length)
+    # chunk j of the padded window, hop_length samples wide, lands in row t + j of frame t
+    chunks = np.zeros(n_shifts * hop_length)
+    chunks[lpad:lpad + win_length] = win_sq
+    chunks = chunks.reshape(n_shifts, hop_length)
+    rows = np.zeros((n_frames + n_shifts - 1, hop_length))
+    for j in reversed(range(n_shifts)):
+        rows[j:j + n_frames] += chunks[j]
+    return rows.reshape(-1)[:n].astype(dtype)
+
+
+def cq_to_chroma(
+    n_input: int,
+    *,
+    bins_per_octave: int = 12,
+    n_chroma: int = 12,
+    fmin: Optional[float] = None,
+    window: Optional[np.ndarray] = None,
+    base_c: bool = True,
+    dtype: Any = np.float32,
+) -> np.ndarray:
+    """Map from ``n_input`` constant-Q bins onto ``n_chroma`` pitch classes: ``(n_chroma, n_input)``.
+
+    Every ``bins_per_octave / n_chroma`` neighbouring bins (the group
+    centred on a class) merge into that class; the rows are rolled so that
+    row 0 is C (A without ``base_c``) given that bin 0 lies at ``fmin``
+    (default C1). ``window`` smooths each row across bins.
+    """
+    if bins_per_octave % n_chroma:
+        raise ParameterError(
+            f"cannot merge {bins_per_octave} CQ bins/octave into "
+            f"{n_chroma} chroma classes: not an integer ratio"
+        )
+    merge = bins_per_octave // n_chroma
+    anchor = midi_to_hz(24) if fmin is None else fmin  # MIDI 24 is C1
+    tonic_class = np.mod(hz_to_midi(anchor), 12)
+    if not base_c:
+        tonic_class -= 9
+    rotation = int(np.round(tonic_class * n_chroma / 12.0))
+
+    cols = np.arange(n_input)
+    in_octave = (cols % bins_per_octave + merge // 2) % bins_per_octave
+    rows = (in_octave // merge + rotation) % n_chroma
+    proj = np.zeros((n_chroma, n_input), dtype=dtype)
+    proj[rows, cols] = 1
+    if window is not None:
+        proj = np.stack([np.convolve(row, window, mode="same") for row in proj]).astype(dtype)
+    return proj
+
+
+def diagonal_filter(window: Any, n: int, *, slope: float = 1.0,
+                    angle: Optional[float] = None, zero_mean: bool = False) -> np.ndarray:
+    """An ``(n, n)`` smoothing kernel: ``window`` laid along a line of the given slope.
+
+    The window goes on the main diagonal and the plane is rotated by a
+    quintic spline to ``angle`` radians (default ``arctan(slope)``); negative
+    ringing is clipped, and the kernel sums to 1 (to 0 with ``zero_mean``).
+    """
+    theta = np.arctan(slope) if angle is None else angle
+    stencil = np.diag(get_window(window, n, fftbins=False))
+    if not np.isclose(theta, np.pi / 4):
+        from scipy.ndimage import rotate
+
+        stencil = rotate(stencil, 45.0 - np.degrees(theta), order=5, prefilter=False)
+        stencil = np.where(stencil > 0, stencil, 0.0)
+    stencil /= stencil.sum()
+    if zero_mean:
+        stencil -= stencil.mean()
+    return stencil

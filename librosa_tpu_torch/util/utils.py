@@ -11,7 +11,8 @@ import torch.nn.functional as F
 from .._device import as_tensor
 from .exceptions import ParameterError
 
-__all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length"]
+__all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax", "localmin",
+           "dtype_r2c", "dtype_c2r", "abs2", "phasor"]
 
 # numpy's names for padding modes, as torch.nn.functional.pad knows them
 _TORCH_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
@@ -185,3 +186,86 @@ def normalize(
         return S / scale.masked_fill(below, float("inf"))
     out = S / scale.masked_fill(below, float("nan"))
     return torch.where(out.isnan(), unit_fill, out)
+
+
+def _local_extremum(x: Any, axis: int, *, maxima: bool) -> torch.Tensor:
+    x = as_tensor(x).movedim(axis, -1)
+    first = torch.zeros_like(x[..., :1], dtype=torch.bool)
+    last = torch.ones_like(x[..., :1], dtype=torch.bool)
+    if maxima:
+        inner, outer = x[..., 1:] > x[..., :-1], x[..., :-1] >= x[..., 1:]
+    else:
+        inner, outer = x[..., 1:] < x[..., :-1], x[..., :-1] <= x[..., 1:]
+    out = torch.cat([first, inner], dim=-1) & torch.cat([outer, last], dim=-1)
+    return out.movedim(-1, axis)
+
+
+def localmax(x: Any, *, axis: int = 0) -> torch.Tensor:
+    """Mask of local maxima along ``axis``: ``x[i] > x[i-1]`` and ``x[i] >= x[i+1]``.
+
+    The first element is never a maximum; the last is one when it exceeds
+    its left neighbour.
+    """
+    return _local_extremum(x, axis, maxima=True)
+
+
+def localmin(x: Any, *, axis: int = 0) -> torch.Tensor:
+    """Mask of local minima along ``axis``: ``x[i] < x[i-1]`` and ``x[i] <= x[i+1]``.
+
+    The first element is never a minimum; the last is one when it lies
+    below its left neighbour.
+    """
+    return _local_extremum(x, axis, maxima=False)
+
+
+_R2C = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+_C2R = {c: r for r, c in _R2C.items()}
+
+
+def _torch_dtype(d: Any) -> Optional[torch.dtype]:
+    """``d`` (a torch dtype, or anything ``numpy.dtype`` takes) as a torch dtype; None stays."""
+    if d is None or isinstance(d, torch.dtype):
+        return d
+    return getattr(torch, np.dtype(d).name)
+
+
+def dtype_r2c(d: Any, *, default: Any = torch.complex64) -> Optional[torch.dtype]:
+    """The complex torch dtype as precise as the real dtype ``d`` (float32 -> complex64).
+
+    ``d`` may be a torch or a numpy dtype. A complex dtype stays; anything
+    that has no complex partner (halves, integers) gives ``default``.
+    """
+    d = _torch_dtype(d)
+    if d.is_complex:
+        return d
+    return _R2C.get(d, _torch_dtype(default))
+
+
+def dtype_c2r(d: Any, *, default: Any = torch.float32) -> Optional[torch.dtype]:
+    """The real torch dtype as precise as the complex dtype ``d`` (complex128 -> float64).
+
+    ``d`` may be a torch or a numpy dtype. A floating dtype stays; anything
+    that has no real partner gives ``default``.
+    """
+    d = _torch_dtype(d)
+    if d.is_floating_point:
+        return d
+    return _C2R.get(d, _torch_dtype(default))
+
+
+def abs2(x: Any, dtype: Any = None) -> torch.Tensor:
+    """``|x|**2``, from the real and imaginary parts for complex input; cast to ``dtype`` if given."""
+    x = as_tensor(x)
+    out = x.real.square() + x.imag.square() if x.is_complex() else x.square()
+    return out if dtype is None else out.to(_torch_dtype(dtype))
+
+
+def phasor(angles: Any, *, mag: Any = None) -> torch.Tensor:
+    """``mag * exp(1j * angles)`` as a complex tensor, from cosine and sine (``mag`` None: 1)."""
+    angles = as_tensor(angles)
+    if not angles.dtype.is_floating_point:
+        angles = angles.to(torch.float32)
+    z = torch.complex(torch.cos(angles), torch.sin(angles))
+    if mag is not None:
+        z = z * torch.as_tensor(mag, device=z.device)
+    return z

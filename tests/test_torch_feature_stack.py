@@ -168,10 +168,19 @@ def test_chroma_stft_leading_dims_and_S_path():
 
 
 def test_chroma_stft_without_tuning_names_the_missing_function():
-    with pytest.raises(L.ParameterError, match="estimate_tuning"):
-        L.feature.chroma_stft(y=_signal(4096), sr=SR)
-    with pytest.raises(L.ParameterError, match="estimate_tuning"):
-        L.feature.chroma_stft(S=np.ones((1025, 4), np.float32), sr=SR, tuning=None)
+    """The function that used to be missing, ``estimate_tuning``, now supplies the tuning."""
+    y = _signal(8192, seed=20)
+    got = L.feature.chroma_stft(y=y, sr=SR)
+    want = np.asarray(lt.feature.chroma_stft(y=y, sr=SR))
+    assert _snr(got.numpy(), want) >= 110.0  # the estimated tuning agrees, then one projection
+    S = np.abs(np.asarray(lt.stft(y))) ** 2
+    tuning = L.estimate_tuning(S=S, sr=SR, bins_per_octave=12)
+    assert tuning == lt.estimate_tuning(S=S, sr=SR, bins_per_octave=12)
+    from_S = L.feature.chroma_stft(S=S, sr=SR, tuning=None)
+    assert _snr(from_S.numpy(), L.feature.chroma_stft(S=S, sr=SR, tuning=tuning).numpy()) >= 140.0
+    with pytest.warns(UserWarning, match="no positive frequencies"):  # silence: tuning 0.0
+        flat = L.feature.chroma_stft(S=np.zeros((1025, 4), np.float32), sr=SR, tuning=None)
+    assert tuple(flat.shape) == (12, 4)
 
 
 # ---------------------------------------------------------------------------

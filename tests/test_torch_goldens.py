@@ -16,7 +16,8 @@ import librosa_tpu_torch
 GOLDEN_DIR = Path(__file__).parent / "goldens"
 PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs", "filters_chroma",
           "normalize_configs", "stft", "stft_configs", "db_scaling", "chroma_stft",
-          "spectrogram_inputs"]
+          "spectrogram_inputs", "istft_roundtrip", "istft_windows", "piptrack",
+          "piptrack_configs", "tuning", "filters_misc", "synth"]
 
 
 @pytest.fixture(autouse=True)

@@ -37,6 +37,9 @@ def _imports(path):
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "librosa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"librosa_tpu_torch/io/_soxr.py", "librosa_tpu_torch/core/audio.py",
+            "librosa_tpu_torch/core/pitch.py", "librosa_tpu_torch/ops/ola_norm.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -75,18 +78,29 @@ def test_namespace_layout():
     for name in ("melspectrogram", "mfcc", "chroma_stft", "spectral_centroid",
                  "spectral_rolloff", "rms"):
         assert callable(getattr(L.feature, name))
-    for name in ("mel", "chroma", "get_window"):
+    for name in ("mel", "chroma", "get_window", "window_sumsquare", "cq_to_chroma",
+                 "diagonal_filter"):
         assert callable(getattr(L.filters, name))
     for name in ("power_to_db", "hz_to_mel", "mel_to_hz", "fft_frequencies",
                  "mel_frequencies", "set_device", "get_device", "stft", "magphase",
                  "amplitude_to_db", "db_to_power", "db_to_amplitude", "perceptual_weighting",
                  "frequency_weighting", "A_weighting", "B_weighting", "C_weighting",
-                 "D_weighting", "Z_weighting"):
+                 "D_weighting", "Z_weighting", "istft", "griffinlim", "resample", "piptrack",
+                 "pitch_tuning", "estimate_tuning", "tone", "chirp", "clicks", "hz_to_octs",
+                 "octs_to_hz"):
         assert callable(getattr(L, name))
-    for name in ("tiny", "expand_to", "normalize", "pad_center", "fix_length"):
+    for name in ("tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax",
+                 "localmin", "dtype_r2c", "dtype_c2r", "abs2", "phasor"):
         assert callable(getattr(L.util, name))
+    import librosa_tpu_torch.core.audio
+    import librosa_tpu_torch.core.pitch
+    import librosa_tpu_torch.io._soxr
+    import librosa_tpu_torch.ops.ola_norm
+    assert L.core.audio.resample is L.resample and L.core.pitch.piptrack is L.piptrack
+    assert callable(L.io._soxr.available) and callable(L.ops.ola_norm.ola_norm)
     from librosa_tpu_torch import entry
     assert callable(entry.entry) and callable(entry.feature_stack)
+    assert callable(entry.reconstruction)
     assert issubclass(L.ParameterError, L.LibrosaError)
 
 
