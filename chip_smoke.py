@@ -41,6 +41,23 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
 4e. holds ``estimate_tuning`` against a float64 numpy version on detuned
    tones, ``piptrack`` with a callable ``ref`` on the card, drives ``chroma_stft`` with the default (estimated) tuning on the
    main buffer against float64, and times both;
+4f. holds the sliding-median kernel (``csrc/median_filter.cu``, behind HPSS)
+   against its plain version, bit for bit with NaN where the plain version
+   has NaN, on NaN-filled memory: every window width it instantiates (2 to
+   64), both axes, contiguous and time-major layouts, axes shorter than half
+   the window, infinities, zeros of both signs, leading dims that must be
+   copied;
+4g. drives config 4 (``entry.cqt_hpss()``: ``cqt`` at 84 bins, 12 to the
+   octave, and ``effects.hpss``) on the same buffer, checks that it launched
+   the median kernel twice and the synthesis kernel twice, holds ``cqt`` on
+   track 0 against the port's own float64 CPU run and ``effects.hpss`` on two
+   tracks against float64 numpy and scipy, prints the octave plan, holds the
+   median kernel at the path's full width (both axes of ``|STFT|`` in
+   ``stft``'s layout) against its plain version track by track and times it
+   beside the plain version, ``torch.median`` and the bound, times the path
+   and its parts with its peak memory, and holds the mel kernel with the
+   pseudo-CQT basis (``pseudo_cqt``, ``hybrid_cqt``) against its plain
+   version;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024;
@@ -87,6 +104,9 @@ MIN_GL_SNR_DB = 80.0           # four rounds feed their float32 rounding back th
 MAX_CONVERGENCE_32 = 0.15      # || |stft(y_hat)| - S || / || S || after 32 rounds, on noise
                                # (0.109940 on the H100; 0.260743 after 4 rounds)
 TUNING_RESOLUTION = 0.01       # the histogram's cell: the port and float64 may differ by one
+MIN_CQT_SNR_DB = 100.0         # cqt on the card against the port's float64 CPU run
+MIN_HPSS_SNR_DB = 85.0         # the hpss_configs golden's floor: float32 and float64 may
+                               # order tied medians differently
 
 # H100 SXM datasheet (dense): HBM bytes/s and float32 CUDA-core FLOP/s
 H100_HBM_BYTES_S = 3.35e12
@@ -241,7 +261,7 @@ def checked_kernel(torch, fused_stft, yd, win, basis, **kw):
     n_out = basis.shape[0]
     _, n_frames = fused_stft.frame_geometry(
         yd.shape[-1], n_fft=kw["n_fft"], hop_length=kw["hop_length"],
-        center=kw.get("center", True), pad_mode=kw.get("pad_mode", "constant"))
+        center=kw.get("center", True))
     poison(torch, (*yd.shape[:-1], n_out, n_frames), yd.device)
     got = fused_stft.stft_mel_fused(yd, win, basis, **kw)
     if not bool(torch.isfinite(got).all()):
@@ -1083,6 +1103,306 @@ def tuning_phase(torch, L, device, y, win) -> dict:
     return {"tuning_ms": tuning_ms, "chroma_ms": chroma_ms}
 
 
+# ---------------------------------------------------------------------------
+# 4f, 4g: the sliding median kernel, and config 4 (constant-Q transform and HPSS)
+# ---------------------------------------------------------------------------
+
+
+def median_bit_equal(torch, got, want) -> bool:
+    """NaN at the same places and the same bits everywhere else."""
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_g, nan_w):
+        return False
+    return torch.equal(got.masked_fill(nan_g, 0.0).view(torch.int32),
+                       want.masked_fill(nan_w, 0.0).view(torch.int32))
+
+
+def median_cases(torch, rng, device):
+    """(label, x, size, axis): every window width the kernel instantiates, both axes, both
+    layouts, axes shorter than half the window, NaN, infinities, zeros of both signs, ties."""
+    cases = []
+    for shape in ((3, 5), (2, 40, 150), (33, 7), (2, 3, 300, 129)):
+        base = rng.randn(*shape).astype(np.float32)
+        flat = base.reshape(-1)
+        flat[::7] = np.round(flat[::7])
+        flat[3], flat[5], flat[6], flat[-2] = np.nan, np.inf, -np.inf, np.nan
+        flat[9], flat[10] = -0.0, 0.0
+        if flat.size > 200:
+            flat[100:120] = np.nan  # a run of NaN longer than half of most windows
+        x = torch.from_numpy(base).to(device)
+        time_major = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+        for size in (2, 3, 4, 5, 17, 31, 32, 33, 64):
+            for axis in (-1, -2):
+                cases.append((f"{shape} size {size} axis {axis}", x, size, axis))
+                cases.append((f"{shape} size {size} axis {axis} time-major", time_major, size,
+                              axis))
+    x = torch.from_numpy(rng.randn(4, 6, 50, 40).astype(np.float32)).to(device)
+    cases.append(("(6, 4, 50, 40) leading dims that do not fold (copied)", x.transpose(0, 1), 31,
+                  -1))
+    cases.append(("1-d, 1000 samples", torch.from_numpy(rng.randn(1000).astype(np.float32))
+                  .to(device), 31, -1))
+    cases.append(("a column slice (not dense)", x[..., ::2], 9, -2))
+    return cases
+
+
+def median_kernel_phase(torch, L, rng, device) -> None:
+    """Phase 4f: the median kernel against its plain version, bit for bit, in small cases."""
+    from librosa_tpu_torch.ops import median
+
+    cases = median_cases(torch, rng, device)
+    copies = median.copies
+    for label, x, size, axis in cases:
+        before = median.launches
+        poison(torch, tuple(x.shape), device)
+        got = median.median_filter_1d(x, size=size, axis=axis)
+        want = median.median_filter_reference(x, size=size, axis=axis)
+        torch.cuda.synchronize()
+        if median.launches != before + 1:
+            raise AssertionError(f"median {label}: the kernel was not launched")
+        if not median_bit_equal(torch, got, want):
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            raise AssertionError(f"median {label}: {bad} of {got.numel()} values differ from "
+                                 "the plain version")
+        if x.is_contiguous() or x.transpose(-1, -2).is_contiguous():
+            if got.stride() != x.stride():
+                raise AssertionError(f"median {label}: output strides {got.stride()} against "
+                                     f"the input's {x.stride()}")
+    if median.copies != copies + 1:
+        raise AssertionError(f"median: {median.copies - copies} copies, expected 1")
+    if L.decompose._median(cases[0][1], 1, -1) is not cases[0][1]:
+        raise AssertionError("median of size 1 is not its input")
+    print(f"median kernel vs plain: {len(cases)} cases bit-equal (NaN where the plain version "
+          f"has NaN), each on NaN-filled memory; sizes 2-64, both axes, both layouts, the "
+          f"output in the input's layout; one input copied for leading dims that do not fold")
+
+
+def hpss64(y, window, *, n_fft, hop, kernel=31):
+    """effects.hpss of one track in float64 numpy and scipy (median_filter, mode 'reflect')."""
+    import scipy.ndimage
+
+    D = stft64(y, window, n_fft=n_fft, hop=hop)
+    S = np.abs(D)
+    phase = np.where(S == 0, 1.0, D / np.where(S == 0, 1.0, S))
+    harm = scipy.ndimage.median_filter(S, size=(1, kernel), mode="reflect")
+    perc = scipy.ndimage.median_filter(S, size=(kernel, 1), mode="reflect")
+    big = np.maximum(harm, perc)
+    empty = big < np.finfo(np.float64).tiny
+    scale = np.where(empty, 1.0, big)
+    h2, p2 = (harm / scale) ** 2, (perc / scale) ** 2
+    mask_h = np.where(empty, 0.5, h2 / np.where(empty, 1.0, h2 + p2))
+    mask_p = np.where(empty, 0.5, p2 / np.where(empty, 1.0, h2 + p2))
+    return tuple(istft64(S * m * phase, window, n_fft=n_fft, hop=hop, length=len(y))
+                 for m in (mask_h, mask_p))
+
+
+def cqt_hpss_phase(torch, L, device, y, win) -> dict:
+    """Phase 4g: config 4 (entry.cqt_hpss) driven, checked and timed; the median kernel at the
+    path's full width against its plain version; K1 with the pseudo-CQT basis."""
+    from librosa_tpu_torch.core import constantq, spectrum
+    from librosa_tpu_torch.entry import cqt_hpss
+    from librosa_tpu_torch.ops import db_scale, fused_stft, median, ola_norm
+
+    n_fft, hop = 2048, 512
+    forward, _ = cqt_hpss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
+    copies = median.copies
+    C, y_harm, y_perc = forward(y)
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "ola_norm": ola_norm.launches, "median_filter": median.launches}
+    if median.copies != copies:
+        raise AssertionError("the median wrapper copied its input on the cqt_hpss path")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_frames = 1 + MAIN_SHAPE[1] // hop
+    print(f"cqt_hpss: y {tuple(y.shape)} -> C {tuple(C.shape)} {C.dtype}, y_harm "
+          f"{tuple(y_harm.shape)}, y_perc {tuple(y_perc.shape)}; launches {counts}; peak memory "
+          f"{peak_bytes} bytes, {peak_bytes - base_bytes} above the {base_bytes} held before")
+    if counts != {"stft_mel": 0, "db_scale": 0, "ola_norm": 2, "median_filter": 2}:
+        raise AssertionError(f"cqt_hpss launched {counts}, expected median_filter 2, ola_norm 2")
+    if (tuple(C.shape) != (MAIN_SHAPE[0], 84, n_frames) or C.dtype != torch.complex64
+            or tuple(y_harm.shape) != MAIN_SHAPE or tuple(y_perc.shape) != MAIN_SHAPE):
+        raise AssertionError(f"cqt_hpss shapes {tuple(C.shape)}, {tuple(y_harm.shape)}")
+    if not (torch.isfinite(torch.view_as_real(C)).all() and torch.isfinite(y_harm).all()
+            and torch.isfinite(y_perc).all()):
+        raise AssertionError("non-finite values on the cqt_hpss path")
+
+    # the octave plan, as the ladder runs it
+    cq = dict(sr=SR, hop_length=hop, n_bins=84, bins_per_octave=12)
+    freqs, alpha, _, _ = constantq._grid(sr=SR, fmin=None, n_bins=84, intervals="equal",
+                                         bins_per_octave=12, tuning=0.0, window="hann",
+                                         filter_scale=1, gamma=0)
+    plan = []
+    for rate, rung_hop, bins in constantq._ladder_plan(SR, hop, freqs, 12, 7):
+        _, rung_fft, _ = constantq._filters_fft(rate, freqs[bins], 1, 1, 0.01, window="hann",
+                                                gamma=0, alpha=alpha[bins])
+        plan.append((rate, rung_hop, rung_fft))
+    print("cqt octave plan, top octave first (rate Hz, hop, n_fft): "
+          + ", ".join(f"({r:g}, {h}, {f})" for r, h, f in plan))
+
+    # cqt of track 0 against the port's own CPU run of the same call in float64
+    C64 = L.cqt(y[0].cpu().double(), res_type="polyphase", **cq)
+    got0, want0 = C[0].cpu().numpy(), C64.numpy()
+    cqt_snr = float(10 * np.log10(np.sum(np.abs(want0) ** 2) / np.sum(np.abs(got0 - want0) ** 2)))
+    print(f"cqt track 0 vs the port's float64 CPU run: {cqt_snr:.1f} dB (floor {MIN_CQT_SNR_DB})")
+    if not cqt_snr >= MIN_CQT_SNR_DB:
+        raise AssertionError(f"cqt vs float64: {cqt_snr:.1f} dB < {MIN_CQT_SNR_DB}")
+    del C64
+
+    # effects.hpss of tracks 0 and 15 against float64 numpy and scipy
+    for track in (0, MAIN_SHAPE[0] - 1):
+        want_h, want_p = hpss64(y[track].cpu().numpy(), win, n_fft=n_fft, hop=hop)
+        s_h = snr_db(y_harm[track].cpu().numpy(), want_h)
+        s_p = snr_db(y_perc[track].cpu().numpy(), want_p)
+        print(f"effects.hpss track {track} vs float64 numpy/scipy: harmonic {s_h:.1f} dB, "
+              f"percussive {s_p:.1f} dB (floor {MIN_HPSS_SNR_DB})")
+        if not (s_h >= MIN_HPSS_SNR_DB and s_p >= MIN_HPSS_SNR_DB):
+            raise AssertionError(f"effects.hpss track {track}: {s_h:.1f}, {s_p:.1f} dB")
+    del C, y_harm, y_perc
+
+    # the median kernel at the path's full width: |STFT| in stft's layout, both axes, track by
+    # track against the plain version (whose window stack is paid for one track at a time)
+    S = L.stft(y, n_fft=n_fft, hop_length=hop).abs()
+    entry = {}
+    for axis, name in ((-1, "harmonic (time)"), (-2, "percussive (frequency)")):
+        poison(torch, tuple(S.shape), device)
+        got = median.median_filter_1d(S, size=31, axis=axis)
+        torch.cuda.synchronize()
+        for track in range(MAIN_SHAPE[0]):
+            want = median.median_filter_reference(S[track], size=31, axis=axis)
+            if not median_bit_equal(torch, got[track], want):
+                raise AssertionError(f"median at full width, {name}, track {track}: not "
+                                     "bit-equal to the plain version")
+        del got, want
+        kernel_ms = time_ms(torch, lambda: median.median_filter_1d(S, size=31, axis=axis), 10)
+
+        def plain():
+            for track in range(MAIN_SHAPE[0]):
+                median.median_filter_reference(S[track], size=31, axis=axis)
+
+        plain_ms = time_ms(torch, plain, 1, groups=1)
+        windows = L.util.pad_center(S, size=S.shape[axis] + 30, axis=axis,
+                                    mode="symmetric").movedim(axis, -1).unfold(-1, 31, 1)
+
+        def library():
+            for track in range(MAIN_SHAPE[0]):
+                torch.median(windows[track], dim=-1)
+
+        library_ms = time_ms(torch, library, 1, groups=1)
+        del windows
+        bound_bytes = 2 * 4 * S.numel()
+        bound_ms = 1e3 * bound_bytes / H100_HBM_BYTES_S
+        entry[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms)
+        print(f"median_filter kernel, size 31 along the {name} axis of |STFT| {tuple(S.shape)} "
+              f"(strides {S.stride()}): {kernel_ms:.4f} ms, plain (pad, unfold, torch.median; "
+              f"{MAIN_SHAPE[0]} tracks one by one) {plain_ms:.4f} ms, torch.median over the "
+              f"unfolded padded view ({MAIN_SHAPE[0]} tracks) {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes: {bound_bytes} read and written once); bit-equal on "
+              f"all {MAIN_SHAPE[0]} tracks")
+
+    # the parts of the path alone
+    D = L.stft(y, n_fft=n_fft, hop_length=hop)
+    stft_ms = time_ms(torch, lambda: L.stft(y, n_fft=n_fft, hop_length=hop), 3)
+    magphase_ms = time_ms(torch, lambda: L.magphase(D), 3)
+    mag, _ = L.magphase(D)
+    harm = median.median_filter_1d(mag, size=31, axis=-1)
+    perc = median.median_filter_1d(mag, size=31, axis=-2)
+    mask_ms = time_ms(torch, lambda: L.util.utils._softmask_core(harm, perc * 1.0, power=2.0,
+                                                                  split_zeros=True), 3)
+    del mag, harm, perc
+    decompose_ms = time_ms(torch, lambda: L.decompose.hpss(D), 3)
+    H, _ = L.decompose.hpss(D)
+    istft_ms = time_ms(torch, lambda: L.istft(H, n_fft=n_fft, hop_length=hop,
+                                              length=MAIN_SHAPE[1]), 3)
+    del H, D, S
+    y_rung = L.resample(y, orig_sr=2, target_sr=1, res_type="polyphase", scale=True)
+    resample_ms = time_ms(torch, lambda: L.resample(y, orig_sr=2, target_sr=1,
+                                                    res_type="polyphase", scale=True), 3)
+    del y_rung
+    cqt_ms = time_ms(torch, lambda: L.cqt(y, res_type="polyphase", **cq), 3)
+    hpss_ms = time_ms(torch, lambda: L.effects.hpss(y), 3)
+    e2e_ms = time_ms(torch, lambda: forward(y), 3)
+    samples = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    print(f"cqt_hpss end to end: {e2e_ms:.4f} ms, {samples / (e2e_ms / 1e3):.6e} samples/s on "
+          f"{MAIN_SHAPE}; alone: cqt {cqt_ms:.4f} ms (of which the first 2:1 polyphase rung "
+          f"{resample_ms:.4f} ms), effects.hpss {hpss_ms:.4f} ms")
+    print(f"effects.hpss parts: stft {stft_ms:.4f} ms, decompose.hpss from the complex STFT "
+          f"{decompose_ms:.4f} ms (magphase {magphase_ms:.4f} ms, one soft mask {mask_ms:.4f} "
+          f"ms, the two medians in the kernel rows above), one istft {istft_ms:.4f} ms")
+
+    # K1 with the pseudo-CQT basis: |STFT| (hann, power 1) projected onto |filters|
+    fmin = L.note_to_hz("C5")
+    before = fused_stft.launches
+    P = L.pseudo_cqt(y, sr=SR, hop_length=hop, fmin=fmin, n_bins=36)
+    if fused_stft.launches != before + 1:
+        raise AssertionError("pseudo_cqt did not launch the stft_mel kernel")
+    pfreqs = L.cqt_frequencies(36, fmin=fmin)
+    palpha = L.filters._relative_bandwidth(freqs=pfreqs)
+    basis, p_fft, bands = constantq._filters_device(device, torch.float32, SR, pfreqs, 1, 1,
+                                                    0.01, hop_length=hop, alpha=palpha,
+                                                    magnitude=True)
+    pwin = spectrum._win_device("hann", p_fft, p_fft, device, torch.float32)
+    kw = dict(n_fft=p_fft, hop_length=hop, center=True, pad_mode="constant")
+    poison(torch, (MAIN_SHAPE[0], 36, n_frames), device)
+    got = fused_stft._fused(y, pwin, basis, bands, power=1.0, **kw)
+    want = fused_stft.stft_mel_reference(y, pwin, basis, power=1.0, **kw)
+    err = (got - want).double().square().sum(dim=(-2, -1))
+    worst = float((10 * torch.log10(want.double().square().sum(dim=(-2, -1))
+                                    / err.clamp(min=1e-300))).min())
+    max_err = float((got - want).abs().max())
+    via = snr_t(torch, torch.view_as_real(P)[..., 0], want / float(np.float32(np.sqrt(p_fft))))
+    del got, want, err, P
+    print(f"stft_mel with the pseudo-CQT basis (36 rows from C5, n_fft {p_fft}, power 1) at the "
+          f"main shape: per track at least {worst:.1f} dB against plain, max |err| "
+          f"{max_err:.3e}; pseudo_cqt against the plain projection {via:.1f} dB (floor "
+          f"{MIN_SNR_POWER1_DB})")
+    if not (worst >= MIN_SNR_POWER1_DB and via >= MIN_SNR_POWER1_DB):
+        raise AssertionError(f"stft_mel with the pseudo-CQT basis: {worst:.1f}, {via:.1f} dB")
+    k1_ms = time_ms(torch, lambda: fused_stft._fused(y, pwin, basis, bands, power=1.0, **kw), 10)
+    k1_plain_ms = time_ms(torch, lambda: fused_stft.stft_mel_reference(y, pwin, basis, power=1.0,
+                                                                       **kw), 3)
+    frames = MAIN_SHAPE[0] * n_frames
+    bytes_ms = 1e3 * (4 * y.numel() + 4 * 36 * frames) / H100_HBM_BYTES_S
+    ops_ms = 1e3 * (fused_stft.flops_per_frame(p_fft, int(torch.count_nonzero(basis)))
+                    * frames / H100_F32_FLOP_S)
+    before = fused_stft.launches
+    hybrid_ms = time_ms(torch, lambda: L.hybrid_cqt(y, res_type="polyphase", **cq), 1, groups=2)
+    hybrid_launches = (fused_stft.launches - before) // 3
+    print(f"stft_mel with the pseudo-CQT basis: {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); "
+          f"hybrid_cqt at 84 bins {hybrid_ms:.4f} ms with {hybrid_launches} stft_mel launch per "
+          "call")
+    if hybrid_launches != 1:
+        raise AssertionError(f"hybrid_cqt launched stft_mel {hybrid_launches} times per call")
+    k1 = dict(ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=max(bytes_ms, ops_ms),
+              bound_by="bytes" if bytes_ms >= ops_ms else "operations", snr_db=worst,
+              max_abs_err=max_err, rows=36, n_fft=p_fft)
+    harm_entry = entry["harmonic (time)"]
+    median_entry = {
+        "name": "median_filter",
+        "route": "cuda",
+        "source": "librosa_tpu_torch/csrc/median_filter.cu",
+        "replaces": "librosa_tpu/ops/median.py:23 median_filter_1d (an XLA program: no Pallas "
+                    "kernel computes the sliding median)",
+        "launches": counts["median_filter"],
+        "launches_by_path": {"mel_db_mfcc": 0, "feature_stack": 0, "reconstruction": 0,
+                             "cqt_hpss": counts["median_filter"]},
+        "max_abs_err": 0.0,
+        "ms": harm_entry["ms"],
+        "kernel_ms": harm_entry["ms"],
+        "plain_ms": harm_entry["plain_ms"],
+        "bound_ms": harm_entry["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": harm_entry["library_ms"],
+        "by_axis": entry,
+    }
+    return {"launches": counts, "median_filter": median_entry, "pseudo_cqt_basis": k1,
+            "e2e_ms": e2e_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1104,7 +1424,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(_build.SOURCES)}")
     for kernel in sorted(_build.SOURCES):
         for line in _build.build_log(kernel).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "entry function" in line):
                 print(f"ptxas {kernel}: {line.strip()}")
 
     # 1. environment
@@ -1262,6 +1583,8 @@ def main() -> int:
     ola_kernel_phase(torch, L, rng, device)
     recon = reconstruction_phase(torch, L, device, y, win)
     tuning_phase(torch, L, device, y, win)
+    median_kernel_phase(torch, L, rng, device)
+    config4 = cqt_hpss_phase(torch, L, device, y, win)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
@@ -1271,7 +1594,8 @@ def main() -> int:
                      + recon["launches"]["stft_mel"]),
         "launches_by_path": {"mel_db_mfcc": main_launches,
                              "feature_stack": stack["launches"]["stft_mel"],
-                             "reconstruction": recon["launches"]["stft_mel"]},
+                             "reconstruction": recon["launches"]["stft_mel"],
+                             "cqt_hpss": config4["launches"]["stft_mel"]},
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -1280,16 +1604,20 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "snr_db": main_snr,
-        "other_bases": stack["bases"],
+        "other_bases": {**stack["bases"], "pseudo_cqt": config4["pseudo_cqt_basis"]},
         "reconstruction_shape": recon["stft_mel"],
     }
     db_entry["launches"] = main_db_launches + stack["launches"]["db_scale"]
     db_entry["launches_by_path"] = {"mel_db_mfcc": main_db_launches,
                                     "feature_stack": stack["launches"]["db_scale"],
-                                    "reconstruction": recon["launches"]["db_scale"]}
+                                    "reconstruction": recon["launches"]["db_scale"],
+                                    "cqt_hpss": config4["launches"]["db_scale"]}
     diag_entries = staged_diagnostics(torch, device, y, kernel_ms)
-    print(json.dumps({"kernels": [stft_mel_entry, db_entry, recon["ola_norm"],
-                                  *diag_entries]}))
+    ola_entry = recon["ola_norm"]
+    ola_entry["launches"] += config4["launches"]["ola_norm"]
+    ola_entry["launches_by_path"]["cqt_hpss"] = config4["launches"]["ola_norm"]
+    print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry,
+                                  config4["median_filter"], *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -26,10 +26,13 @@ from __future__ import annotations
 
 from ._device import get_device, set_device  # noqa: F401
 from .core.audio import *  # noqa: F401,F403
+from .core.constantq import *  # noqa: F401,F403
 from .core.convert import *  # noqa: F401,F403
+from .core.intervals import *  # noqa: F401,F403
+from .core.notation import *  # noqa: F401,F403
 from .core.pitch import *  # noqa: F401,F403
 from .core.spectrum import *  # noqa: F401,F403
 from .util.exceptions import LibrosaError, ParameterError  # noqa: F401
 from .version import show_versions, version as __version__  # noqa: F401
 
-from . import core, feature, filters, io, ops, util  # noqa: F401
+from . import core, decompose, effects, feature, filters, io, ops, util  # noqa: F401

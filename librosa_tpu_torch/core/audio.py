@@ -24,7 +24,7 @@ from ..util.exceptions import ParameterError
 from ..util.utils import fix_length
 from .convert import frames_to_samples, time_to_samples
 
-__all__ = ["resample", "resample_poly", "tone", "chirp", "clicks"]
+__all__ = ["resample", "tone", "chirp", "clicks"]
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,7 @@ stay in numpy; only the finished table goes to the card.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Optional
 
 import numpy as np
@@ -15,7 +16,9 @@ from ..util.exceptions import ParameterError
 
 __all__ = [
     "hz_to_mel", "mel_to_hz", "hz_to_octs", "octs_to_hz", "hz_to_midi", "midi_to_hz",
+    "note_to_midi", "note_to_hz", "midi_to_note", "hz_to_note", "A4_to_tuning", "tuning_to_A4",
     "frames_to_samples", "time_to_samples", "fft_frequencies", "mel_frequencies",
+    "cqt_frequencies", "tempo_frequencies", "fourier_tempo_frequencies",
     "A_weighting", "B_weighting", "C_weighting", "D_weighting", "Z_weighting",
     "frequency_weighting",
 ]
@@ -82,6 +85,80 @@ def hz_to_midi(frequencies: Any) -> np.ndarray:
     return 12 * (np.log2(np.asanyarray(frequencies)) - np.log2(440.0)) + 69
 
 
+# A spelled note: a letter, accidentals, an optional octave and an optional offset in cents
+_NOTE = re.compile(r"^(?P<letter>[A-Ga-g])(?P<acc>[#♯𝄪b!♭𝄫♮]*)(?P<octave>[+-]?\d+)?"
+                   r"(?P<cents>[+-]\d+)?$")
+_LETTER_SEMITONES = {"C": 0, "D": 2, "E": 4, "F": 5, "G": 7, "A": 9, "B": 11}
+_ACCIDENTAL_SEMITONES = {"#": 1, "♯": 1, "𝄪": 2, "b": -1, "!": -1, "♭": -1, "𝄫": -2, "♮": 0}
+
+
+def note_to_midi(note: Any, *, round_midi: bool = True) -> Any:
+    """MIDI number of a spelled note (``'C4'`` is 60), or an array of them for a list.
+
+    Accidentals ``#``/``♯`` (+1), ``𝄪`` (+2), ``b``/``!``/``♭`` (-1),
+    ``𝄫`` (-2), ``♮`` (0); no octave means octave 0; a trailing ``+25`` or
+    ``-10`` adds cents, kept as a fraction unless ``round_midi``. The empty
+    string gives NaN.
+    """
+    if not isinstance(note, str):
+        return np.array([note_to_midi(n, round_midi=round_midi) for n in note])
+    if note == "":
+        return np.nan
+    parsed = _NOTE.match(note)
+    if parsed is None:
+        raise ParameterError(f"Cannot parse note name: {note!r}")
+    octave = int(parsed.group("octave") or 0)
+    value = (12 * (octave + 1) + _LETTER_SEMITONES[parsed.group("letter").upper()]
+             + sum(_ACCIDENTAL_SEMITONES[a] for a in parsed.group("acc"))
+             + int(parsed.group("cents") or 0) / 100.0)
+    return int(np.round(value)) if round_midi else value
+
+
+def note_to_hz(note: Any, *, round_midi: bool = False) -> Any:
+    """Frequency in Hz of a spelled note (see :func:`note_to_midi`); cents kept by default."""
+    return midi_to_hz(note_to_midi(note, round_midi=round_midi))
+
+
+def midi_to_note(midi: Any, *, octave: bool = True, cents: bool = False, key: str = "C:maj",
+                 unicode: bool = True) -> Any:
+    """The spelled name of a MIDI number, or an array of names for an array.
+
+    The pitch class is spelled as ``key`` spells it
+    (:func:`~librosa_tpu_torch.core.notation.key_to_notes`); ``octave``
+    appends the octave number and ``cents`` the signed offset in cents of a
+    fractional number from the nearest note.
+    """
+    if cents and not octave:
+        raise ParameterError("Cannot encode cents without octave information.")
+    if not np.isscalar(midi):
+        return np.array([midi_to_note(m, octave=octave, cents=cents, key=key, unicode=unicode)
+                         for m in midi])
+    from .notation import key_to_notes
+
+    nearest = int(np.round(midi))
+    name = key_to_notes(key=key, unicode=unicode)[nearest % 12]
+    if octave:
+        name += f"{nearest // 12 - 1:0d}"
+    if cents:
+        name += f"{int(100 * np.around(midi - nearest, 2)):+02d}"
+    return name
+
+
+def hz_to_note(frequencies: Any, **kwargs: Any) -> Any:
+    """The spelled name of the note nearest each frequency; ``kwargs`` go to :func:`midi_to_note`."""
+    return midi_to_note(hz_to_midi(frequencies), **kwargs)
+
+
+def A4_to_tuning(A4: Any, *, bins_per_octave: int = 12) -> np.ndarray:
+    """The tuning deviation, in fractions of a bin, of the reference pitch ``A4`` Hz from 440 Hz."""
+    return bins_per_octave * (np.log2(np.asanyarray(A4)) - np.log2(440.0))
+
+
+def tuning_to_A4(tuning: Any, *, bins_per_octave: int = 12) -> np.ndarray:
+    """The reference pitch in Hz of a tuning deviation; the inverse of :func:`A4_to_tuning`."""
+    return 440.0 * 2.0 ** (np.asanyarray(tuning) / bins_per_octave)
+
+
 def frames_to_samples(frames: Any, *, hop_length: int = 512,
                       n_fft: Optional[int] = None) -> np.ndarray:
     """Frame indices to sample indices, offset by ``n_fft // 2`` for centred frames."""
@@ -105,6 +182,29 @@ def mel_frequencies(
     """``n_mels`` frequencies evenly spaced on the mel scale from fmin to fmax."""
     mels = np.linspace(hz_to_mel(fmin, htk=htk), hz_to_mel(fmax, htk=htk), n_mels)
     return mel_to_hz(mels, htk=htk)
+
+
+def cqt_frequencies(n_bins: int, *, fmin: float, bins_per_octave: int = 12,
+                    tuning: float = 0.0) -> np.ndarray:
+    """``n_bins`` frequencies spaced ``bins_per_octave`` to the octave from ``fmin``, tuned.
+
+    ``tuning`` shifts the grid by that fraction of a bin.
+    """
+    steps = (float(tuning) + np.arange(0, n_bins, dtype=float)) / bins_per_octave
+    return fmin * 2.0 ** steps
+
+
+def tempo_frequencies(n_bins: int, *, hop_length: int = 512, sr: float = 22050) -> np.ndarray:
+    """Tempo in BPM of each lag bin of an autocorrelation tempogram; lag 0 is infinite."""
+    lags = np.arange(int(n_bins), dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        return 60.0 * sr / (hop_length * lags)
+
+
+def fourier_tempo_frequencies(*, sr: float = 22050, win_length: int = 384,
+                              hop_length: int = 512) -> np.ndarray:
+    """Tempo in BPM of each bin of a Fourier tempogram of ``win_length`` onset frames."""
+    return fft_frequencies(sr=sr * 60 / float(hop_length), n_fft=win_length)
 
 
 # ---------------------------------------------------------------------------

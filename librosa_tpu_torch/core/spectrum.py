@@ -68,7 +68,8 @@ def _stft_mel_core(y: torch.Tensor, window: torch.Tensor, basis: Any,
     """
     kw = dict(n_fft=n_fft, hop_length=hop_length, power=power, center=center,
               pad_mode=pad_mode)
-    if kernel_refusal(y.dtype, n_fft, hop_length, pad_mode) is None:
+    if kernel_refusal(y.dtype, n_fft, hop_length, pad_mode,
+                      y.shape[-1] if center else None) is None:
         return _fused(y, window, basis, bands, **kw)
     return stft_mel_reference(y, window, basis, **kw)
 
@@ -441,7 +442,8 @@ def _spectrogram(
     window_dev = _win_device(window, win_length, n_fft, y.device, y.dtype)
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
               power=float(power))
-    if kernel_refusal(y.dtype, n_fft, hop_length, pad_mode) is None:
+    if kernel_refusal(y.dtype, n_fft, hop_length, pad_mode,
+                      y.shape[-1] if center else None) is None:
         basis, bands = _eye_device(n_fft, y.device)
         return _fused(y, window_dev, basis, bands, **kw), n_fft
     return _stft_power_core(y, window_dev, **kw), n_fft

@@ -4,8 +4,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import feature
+from . import effects, feature
 from .core.audio import resample
+from .core.constantq import cqt
 from .core.spectrum import _spectrogram, griffinlim, power_to_db
 
 SR = 22050
@@ -63,5 +64,23 @@ def reconstruction(init="random"):
         S, _ = _spectrogram(y=y16k, power=1, **kw)
         y_hat = griffinlim(S, n_iter=32, rng=0, init=init, length=y16k.shape[-1], **kw)
         return y16k, y_hat
+
+    return forward, (np.zeros((2, SR * 4), dtype=np.float32),)
+
+
+def cqt_hpss():
+    """Return ``(forward, example_args)`` for the constant-Q transform and HPSS of a batch of tracks.
+
+    ``forward(y)`` gives ``(C, y_harm, y_perc)`` of ``y`` ``(..., n)``: the
+    constant-Q transform at 84 bins, 12 to the octave from C1, hop 512, with
+    the octaves resampled by ``'polyphase'``, and the harmonic and percussive
+    waveforms of :func:`effects.hpss` at its defaults (n_fft 2048, hop 512,
+    median filters of 31, power 2, margin 1). On the card the median_filter
+    kernel runs twice and the ola_norm kernel twice.
+    """
+    def forward(y):
+        C = cqt(y, sr=SR, hop_length=512, n_bins=84, bins_per_octave=12, res_type="polyphase")
+        y_harm, y_perc = effects.hpss(y)
+        return C, y_harm, y_perc
 
     return forward, (np.zeros((2, SR * 4), dtype=np.float32),)

@@ -18,8 +18,8 @@ from ..ops.transforms import dct_matrix
 from ..util.exceptions import ParameterError
 from ..util.utils import _torch_dtype, abs2, expand_to, normalize, pad_last
 
-__all__ = ["melspectrogram", "mfcc", "chroma_stft", "spectral_centroid", "spectral_rolloff",
-           "rms"]
+__all__ = ["melspectrogram", "mfcc", "chroma_stft", "chroma_cqt", "chroma_cens", "chroma_vqt",
+           "spectral_centroid", "spectral_rolloff", "rms"]
 
 
 def _basis_device(make: Callable[..., np.ndarray], sr: float, n_fft: int,
@@ -191,12 +191,177 @@ def chroma_stft(
     return _project_norm_core(S, basis, norm=norm)
 
 
-def _project_norm_core(X: torch.Tensor, basis: torch.Tensor, *,
-                       norm: Optional[float]) -> torch.Tensor:
-    """``basis @ X`` in full float32, then each frame scaled to unit ``norm`` (None: as it is)."""
+def _project_norm_core(X: torch.Tensor, basis: torch.Tensor, *, norm: Optional[float],
+                       threshold: Optional[float] = None) -> torch.Tensor:
+    """``basis @ X`` in full float32, values below ``threshold`` set to 0 (None: none), then each
+    frame scaled to unit ``norm`` (None: as it is)."""
     with exact_f32():
         out = torch.matmul(basis, X)
+    if threshold is not None:
+        out = torch.where(out < threshold, 0.0, out)
     return normalize(out, norm=norm, axis=-2)
+
+
+def _cq_chroma(C: torch.Tensor, *, bins_per_octave: int, n_chroma: int, fmin: float,
+               window: Optional[np.ndarray], norm: Optional[float],
+               threshold: Optional[float]) -> torch.Tensor:
+    """Constant-Q bins ``C`` folded onto ``n_chroma`` pitch classes (:func:`filters.cq_to_chroma`)."""
+    fold = filters.cq_to_chroma(C.shape[-2], bins_per_octave=bins_per_octave, n_chroma=n_chroma,
+                                fmin=fmin, window=window)
+    basis = torch.as_tensor(np.asarray(fold, dtype=np.float64), device=C.device,
+                            dtype=C.dtype)
+    return _project_norm_core(C, basis, norm=None if norm is None else float(norm),
+                              threshold=None if threshold is None else float(threshold))
+
+
+def _cq_kwargs(sr: float, hop_length: int, fmin: float, n_bins: int) -> dict:
+    """The constant-Q settings of the chroma features: hann filters of unit L1 norm, scaled."""
+    return dict(sr=sr, hop_length=hop_length, fmin=fmin, n_bins=n_bins, filter_scale=1, norm=1,
+                sparsity=0.01, window="hann", scale=True, pad_mode="constant",
+                res_type="soxr_hq", dtype=None)
+
+
+def chroma_cqt(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    C: Any = None,
+    hop_length: int = 512,
+    fmin: Optional[float] = None,
+    norm: Optional[float] = np.inf,
+    threshold: float = 0.0,
+    tuning: Optional[float] = None,
+    n_chroma: int = 12,
+    n_octaves: int = 7,
+    window: Optional[np.ndarray] = None,
+    bins_per_octave: int = 36,
+    cqt_mode: str = "full",
+) -> torch.Tensor:
+    """Constant-Q chromagram ``(..., n_chroma, T)``: constant-Q magnitudes folded onto pitch classes.
+
+    ``C`` is a constant-Q magnitude spectrogram with ``bins_per_octave``
+    bins to the octave from ``fmin`` (default C1); without it one is
+    computed from ``y`` over ``n_octaves`` octaves (``cqt_mode='full'``: the
+    modulus of :func:`~librosa_tpu_torch.core.constantq.vqt` on the equal
+    grid; ``'hybrid'``: :func:`~librosa_tpu_torch.core.constantq.hybrid_cqt`),
+    at ``tuning`` (None: estimated from ``y``). Values below ``threshold``
+    are zeroed, then each frame is scaled to unit ``norm``.
+    """
+    from ..core import constantq
+    from ..core.convert import note_to_hz
+
+    if bins_per_octave is None:
+        bins_per_octave = n_chroma
+    elif np.remainder(bins_per_octave, n_chroma) != 0:
+        raise ParameterError(f"bins_per_octave={bins_per_octave} must be an integer multiple of "
+                             f"n_chroma={n_chroma}")
+    if fmin is None:
+        fmin = note_to_hz("C1")
+    if C is None:
+        kw = _cq_kwargs(sr, hop_length, fmin, n_octaves * bins_per_octave)
+        if cqt_mode == "full":
+            C = constantq._vqt(y, magnitude=True, intervals="equal", gamma=0,
+                               bins_per_octave=bins_per_octave, tuning=tuning, **kw)
+        elif cqt_mode == "hybrid":
+            C = constantq.hybrid_cqt(y, sr=sr, hop_length=hop_length, fmin=fmin,
+                                     n_bins=n_octaves * bins_per_octave,
+                                     bins_per_octave=bins_per_octave, tuning=tuning).abs()
+        else:
+            raise ParameterError(f"Invalid cqt_mode: {cqt_mode}")
+    else:
+        C = as_tensor(C)
+    return _cq_chroma(C, bins_per_octave=bins_per_octave, n_chroma=n_chroma, fmin=fmin,
+                      window=window, norm=norm, threshold=threshold)
+
+
+def chroma_cens(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    C: Any = None,
+    hop_length: int = 512,
+    fmin: Optional[float] = None,
+    tuning: Optional[float] = None,
+    n_chroma: int = 12,
+    n_octaves: int = 7,
+    bins_per_octave: int = 36,
+    cqt_mode: str = "full",
+    window: Optional[np.ndarray] = None,
+    norm: Optional[float] = 2,
+    win_len_smooth: Optional[int] = 41,
+    smoothing_window: Any = "hann",
+) -> torch.Tensor:
+    """Chroma energy normalised statistics ``(..., n_chroma, T)``.
+
+    The :func:`chroma_cqt` of each frame scaled to unit L1 norm, counted in
+    quarters by the thresholds 0.4, 0.2, 0.1 and 0.05, smoothed over
+    ``win_len_smooth`` frames by ``smoothing_window`` (its ``win_len_smooth
+    + 2``-point symmetric form with the zero ends, summing to 1; None: no
+    smoothing), then scaled to unit ``norm``.
+    """
+    if win_len_smooth is not None and (not isinstance(win_len_smooth, (int, np.integer))
+                                       or win_len_smooth <= 0):
+        raise ParameterError(f"the CENS smoothing length must be a positive frame count or None; "
+                             f"got {win_len_smooth!r}")
+    chroma = chroma_cqt(y=y, C=C, sr=sr, hop_length=hop_length, fmin=fmin,
+                        bins_per_octave=bins_per_octave, tuning=tuning, norm=None,
+                        n_chroma=n_chroma, n_octaves=n_octaves, cqt_mode=cqt_mode, window=window)
+    chroma = normalize(chroma, norm=1, axis=-2)
+    counts = sum(((chroma > step).to(chroma.dtype) * 0.25 for step in (0.4, 0.2, 0.1, 0.05)),
+                 torch.zeros_like(chroma))
+    if win_len_smooth:
+        win = np.asarray(filters.get_window(smoothing_window, win_len_smooth + 2, fftbins=False),
+                         dtype=np.float32)
+        taps = torch.as_tensor(win / np.sum(win), device=counts.device, dtype=counts.dtype)
+        counts = _convolve_same(counts, taps)
+    return normalize(counts, norm=None if norm is None else float(norm), axis=-2)
+
+
+def _convolve_same(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """``numpy.convolve(row, taps, 'same')`` of every row of ``x`` along its last axis."""
+    n = taps.shape[0]
+    padded = pad_last(x, (n - 1) // 2, n - 1 - (n - 1) // 2)
+    frames = padded.unfold(-1, n, 1)
+    with exact_f32():
+        return torch.matmul(frames, taps.flip(0))
+
+
+def chroma_vqt(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    V: Any = None,
+    hop_length: int = 512,
+    fmin: Optional[float] = None,
+    intervals: Any = None,
+    norm: Optional[float] = np.inf,
+    threshold: float = 0.0,
+    n_octaves: int = 7,
+    gamma: Optional[float] = 0,
+    bins_per_octave: int = 12,
+) -> torch.Tensor:
+    """Variable-Q chromagram ``(..., bins_per_octave, T)``: variable-Q magnitudes folded onto one octave.
+
+    ``V`` is a variable-Q magnitude spectrogram on the grid ``intervals``
+    from ``fmin`` (default C1); without it one is computed from ``y`` over
+    ``n_octaves`` octaves with bandwidth offset ``gamma`` (``intervals`` is
+    then required). Each bin of an octave is its own class.
+    """
+    from ..core import constantq
+    from ..core.convert import note_to_hz
+
+    if fmin is None:
+        fmin = note_to_hz("C1")
+    if V is None:
+        if intervals is None:
+            raise ParameterError("intervals must be provided to compute VQT chroma")
+        V = constantq._vqt(y, magnitude=True, intervals=intervals, gamma=gamma,
+                           bins_per_octave=bins_per_octave, tuning=0.0,
+                           **_cq_kwargs(sr, hop_length, fmin, n_octaves * bins_per_octave))
+    else:
+        V = as_tensor(V)
+    return _cq_chroma(V, bins_per_octave=bins_per_octave, n_chroma=bins_per_octave, fmin=fmin,
+                      window=None, norm=norm, threshold=threshold)
 
 
 def _check_nonneg_real(S: torch.Tensor, name: str, *, computed: bool = False) -> None:

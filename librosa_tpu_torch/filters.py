@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import functools
 import warnings
-from typing import Any, Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import scipy.signal
@@ -19,7 +19,8 @@ from .core.convert import fft_frequencies, hz_to_midi, mel_frequencies, midi_to_
 from .util.exceptions import ParameterError
 
 __all__ = ["mel", "chroma", "get_window", "window_sumsquare", "cq_to_chroma",
-           "diagonal_filter"]
+           "diagonal_filter", "window_bandwidth", "wavelet_lengths", "wavelet",
+           "WINDOW_BANDWIDTHS"]
 
 
 def get_window(window: Any, Nx: int, *, fftbins: bool = True) -> np.ndarray:
@@ -283,3 +284,110 @@ def diagonal_filter(window: Any, n: int, *, slope: float = 1.0,
     if zero_mean:
         stencil -= stencil.mean()
     return stencil
+
+
+# Equivalent noise bandwidth in FFT bins, n * sum(w**2) / sum(w)**2, of the named
+# windows (scipy's names and aliases), as the constant-Q filters are sized with it.
+_ENBW = {
+    ("bart", "bartlett", "brt"): 1.3334961334912805,
+    ("barthann", "brthan", "bth"): 1.4560255965133932,
+    ("bkh", "blackharr", "blackmanharris"): 2.0045975283585014,
+    ("black", "blackman", "blk"): 1.7269681554262326,
+    ("bman", "bmn", "bohman"): 1.7859588613860062,
+    ("box", "boxcar", "ones", "rect", "rectangular"): 1.0,
+    ("cosine", "halfcosine"): 1.2337005350199792,
+    ("flat", "flattop", "flt"): 2.7762255046484143,
+    ("ham", "hamm", "hamming"): 1.3629455320350348,
+    ("han", "hann"): 1.50018310546875,
+    ("nut", "nutl", "nuttall"): 1.9763500280946082,
+    ("par", "parz", "parzen"): 1.9174603174603191,
+    ("tri", "triang", "triangle"): 1.3331706523555851,
+}
+WINDOW_BANDWIDTHS: dict = {name: bw for names, bw in _ENBW.items() for name in names}
+
+
+def window_bandwidth(window: Any, n: int = 1000) -> float:
+    """Equivalent noise bandwidth of ``window``, in FFT bins.
+
+    Named windows come from :data:`WINDOW_BANDWIDTHS`; any other (a tuple,
+    a callable) is measured once as ``n * sum(w**2) / sum(w)**2`` on ``n``
+    samples and remembered under its name.
+    """
+    key = getattr(window, "__name__", window)
+    if key not in WINDOW_BANDWIDTHS:
+        win = get_window(window, n)
+        WINDOW_BANDWIDTHS[key] = n * np.sum(win**2) / (np.sum(win) ** 2 + np.finfo(win.dtype).tiny)
+    return WINDOW_BANDWIDTHS[key]
+
+
+def _relative_bandwidth(*, freqs: np.ndarray) -> np.ndarray:
+    """Each bin's relative bandwidth ``(r - 1) / (r + 1)``, ``r`` the frequency ratio of its neighbours.
+
+    At the two ends the one neighbour's ratio counts twice.
+    """
+    if len(freqs) <= 1:
+        raise ParameterError(
+            f"2 or more frequencies are required to compute bandwidths. Given freqs={freqs}")
+    ratio = np.exp2(2.0 * np.gradient(np.log2(freqs)))
+    return (ratio - 1) / (ratio + 1)
+
+
+def wavelet_lengths(*, freqs: Any, sr: float = 22050, window: Any = "hann",
+                    filter_scale: float = 1, gamma: Optional[float] = 0,
+                    alpha: Any = None) -> Tuple[np.ndarray, float]:
+    """``(lengths, f_cutoff)``: each wavelet's length in samples and the top of the highest band.
+
+    Filter ``k`` has the bandwidth ``alpha[k] * freqs[k] + gamma`` Hz
+    (``alpha`` defaults to :func:`_relative_bandwidth`; ``gamma=None`` takes
+    the ERB-like ``24.7 / 0.108 * alpha``) and so ``filter_scale * sr`` over
+    that many samples. ``f_cutoff`` is the highest ``freqs + half`` a
+    window's main lobe.
+    """
+    freqs = np.asarray(freqs)
+    if filter_scale <= 0:
+        raise ParameterError(f"filter_scale must be a positive number; got {filter_scale}")
+    if gamma is not None and gamma < 0:
+        raise ParameterError(f"a negative gamma ({gamma}) is not meaningful")
+    if freqs.min(initial=np.inf) <= 0:
+        raise ParameterError("wavelet center frequencies must be > 0")
+    if np.any(np.diff(freqs) < 0):
+        raise ParameterError(f"wavelet center frequencies must be sorted ascending; got {freqs}")
+    alpha = _relative_bandwidth(freqs=freqs) if alpha is None else np.asarray(alpha)
+    offset = alpha * (24.7 / 0.108) if gamma is None else gamma
+    scale = float(filter_scale)
+    lobe = 0.5 * (freqs * (window_bandwidth(window) * alpha / scale) + offset)
+    return scale * sr / (alpha * freqs + offset), float(np.max(freqs + lobe))
+
+
+def _fractional_window(window: Any, length: float) -> np.ndarray:
+    """``window`` over ``floor(length)`` samples, zero-padded to ``ceil(length)``."""
+    whole = int(np.floor(length))
+    win = np.asarray(get_window(window, whole), dtype=np.float64)
+    return np.pad(win, (0, int(np.ceil(length)) - whole))
+
+
+def wavelet(*, freqs: Any, sr: float = 22050, window: Any = "hann", filter_scale: float = 1,
+            pad_fft: bool = True, norm: Optional[float] = 1, dtype: Any = np.complex64,
+            gamma: float = 0, alpha: Any = None, **kwargs: Any) -> Tuple[np.ndarray, np.ndarray]:
+    """``(basis, lengths)``: one windowed complex sinusoid per frequency, centred in a common width.
+
+    Row ``k`` is ``exp(2 pi i freqs[k] t / sr)`` on ``t`` from
+    ``-lengths[k] // 2`` up to ``lengths[k] // 2`` (:func:`wavelet_lengths`),
+    under ``window``, scaled to unit ``norm``, and centred (``kwargs`` go to
+    ``numpy.pad``) in the longest length, rounded up to a power of two with
+    ``pad_fft``.
+    """
+    freqs = np.asarray(freqs)
+    lengths, _ = wavelet_lengths(freqs=freqs, sr=sr, window=window, filter_scale=filter_scale,
+                                 gamma=gamma, alpha=alpha)
+    width = float(np.max(lengths))
+    width = int(2.0 ** np.ceil(np.log2(width))) if pad_fft else int(np.ceil(width))
+    rows = []
+    for length, freq in zip(lengths, freqs):
+        t = np.arange(-length // 2, length // 2, dtype=float)
+        atom = np.exp(1j * (2 * np.pi * freq / sr) * t) * _fractional_window(window, len(t))
+        if norm is not None:
+            atom = _normalize_rows(atom[None, :], norm)[0]
+        lpad = (width - len(atom)) // 2
+        rows.append(np.pad(atom, (lpad, width - len(atom) - lpad), **{"mode": "constant", **kwargs}))
+    return np.asarray(rows, dtype=dtype), lengths

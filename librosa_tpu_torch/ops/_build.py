@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"stft_mel": "stft_mel.cu", "staged_probe": "staged_probe.cu",
-           "db_scale": "db_scale.cu", "ola_norm": "ola_norm.cu"}
+           "db_scale": "db_scale.cu", "ola_norm": "ola_norm.cu",
+           "median_filter": "median_filter.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

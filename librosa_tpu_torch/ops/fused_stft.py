@@ -146,13 +146,16 @@ def fused_supported(n_fft: int, hop_length: int) -> bool:
     return _tile_frames(n_fft, hop_length) > 0
 
 
-def kernel_refusal(dtype: torch.dtype, n_fft: int, hop_length: int,
-                   pad_mode: str) -> Optional[str]:
+def kernel_refusal(dtype: torch.dtype, n_fft: int, hop_length: int, pad_mode: str,
+                   centred_len: Optional[int] = None) -> Optional[str]:
     """Why the CUDA kernel does not take this call, or None if it does.
 
     The one support rule: the router in ``core/spectrum.py`` sends a call
     to the kernel when this is None, and :func:`stft_mel_fused` raises with
-    this reason on a CUDA tensor otherwise.
+    this reason on a CUDA tensor otherwise. ``centred_len`` is the length of
+    a signal that is padded by ``n_fft // 2`` a side (None: not centred);
+    the kernel mirrors a ``'reflect'`` pad once, so it needs more samples
+    than the pad.
     """
     if dtype != torch.float32:
         return f"the stft_mel kernel takes float32 input, not {dtype}"
@@ -160,6 +163,9 @@ def kernel_refusal(dtype: torch.dtype, n_fft: int, hop_length: int,
         return f"the stft_mel kernel pads 'constant' or 'reflect', not {pad_mode!r}"
     if not fused_supported(n_fft, hop_length):
         return f"the stft_mel kernel does not take n_fft={n_fft}, hop={hop_length}"
+    if pad_mode == "reflect" and centred_len is not None and centred_len <= n_fft // 2:
+        return (f"the stft_mel kernel reflects the pad once: it needs more than n_fft // 2 = "
+                f"{n_fft // 2} samples, not {centred_len}")
     return None
 
 
@@ -177,15 +183,10 @@ def flops_per_frame(n_fft: int, basis_nnz: int) -> int:
     return n_fft + (5 * n_fft * log2_n) // 2 + 3 * (n_fft // 2 + 1) + 2 * basis_nnz
 
 
-def frame_geometry(sig_len: int, *, n_fft: int, hop_length: int, center: bool,
-                   pad_mode: str) -> Tuple[int, int]:
+def frame_geometry(sig_len: int, *, n_fft: int, hop_length: int,
+                   center: bool) -> Tuple[int, int]:
     """``(lpad, n_frames)`` of a signal of ``sig_len`` samples; raises if none fits."""
     lpad = n_fft // 2 if center else 0
-    if center and pad_mode in ("reflect", "wrap") and lpad >= sig_len:
-        raise ParameterError(
-            f"pad_mode={pad_mode!r} needs more than n_fft // 2 = {lpad} samples; "
-            f"got {sig_len}"
-        )
     if sig_len + 2 * lpad < n_fft:
         raise ParameterError(
             f"Input is too short (n={sig_len:d}) for n_fft={n_fft:d}"
@@ -288,13 +289,13 @@ def _fused(y: Any, window: Any, basis: Any, bands: Optional[torch.Tensor], *, n_
                                   power=power, center=center, pad_mode=pad_mode)
     if y.device.type != "cuda":
         raise ParameterError(f"stft_mel_fused runs on cuda or cpu, not {y.device}")
-    refusal = kernel_refusal(y.dtype, n_fft, hop_length, pad_mode)
+    lead, sig_len = y.shape[:-1], y.shape[-1]
+    refusal = kernel_refusal(y.dtype, n_fft, hop_length, pad_mode, sig_len if center else None)
     if refusal is not None:
         raise ParameterError(refusal)
     device = y.device
-    lead, sig_len = y.shape[:-1], y.shape[-1]
     lpad, n_frames = frame_geometry(sig_len, n_fft=n_fft, hop_length=hop_length,
-                                    center=center, pad_mode=pad_mode)
+                                    center=center)
     y2 = y.reshape(-1, sig_len).contiguous()
     win = _table(window, device, torch.float32).contiguous()
     bas = _table(basis, device, torch.float32).contiguous()
@@ -341,7 +342,7 @@ def frames_power(y: torch.Tensor, window: torch.Tensor, *, n_fft: int, hop_lengt
     device and a real dtype.
     """
     lpad, _ = frame_geometry(y.shape[-1], n_fft=n_fft, hop_length=hop_length,
-                             center=center, pad_mode=pad_mode)
+                             center=center)
     y = pad_last(y, lpad, lpad, mode=pad_mode)
     pw = frames_power_spectrum(frame_signal(y, frame_length=n_fft, hop_length=hop_length)
                                * window)

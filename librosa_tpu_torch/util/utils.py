@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -12,12 +12,13 @@ from .._device import as_tensor
 from .exceptions import ParameterError
 
 __all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax", "localmin",
-           "dtype_r2c", "dtype_c2r", "abs2", "phasor"]
+           "dtype_r2c", "dtype_c2r", "abs2", "phasor", "softmask", "sparsify_rows"]
 
 # numpy's names for padding modes, as torch.nn.functional.pad knows them
 _TORCH_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
                     "wrap": "circular"}
-_PAD_MODES = tuple(_TORCH_PAD_MODES) + ("symmetric",)
+_STAT_PAD_MODES = ("maximum", "minimum", "mean", "median")
+_PAD_MODES = tuple(_TORCH_PAD_MODES) + ("symmetric", "linear_ramp", "empty") + _STAT_PAD_MODES
 
 
 def tiny(x: Any) -> float:
@@ -58,45 +59,99 @@ def expand_to(x: Any, *, ndim: int, axes: Union[int, Sequence[int]]) -> torch.Te
     return x.reshape(tuple(shape))
 
 
-def pad_last(x: torch.Tensor, before: int, after: int, *, mode: str = "constant",
-             constant_values: float = 0.0) -> torch.Tensor:
-    """Pad the last axis of ``x`` by ``(before, after)`` samples, with numpy's mode names.
+def _pair(value: Any, name: str) -> Tuple[Any, Any]:
+    """``value`` for the (before, after) sides: a scalar serves both, a pair gives each its own."""
+    if np.ndim(value) == 0:
+        return value, value
+    if len(value) != 2:
+        raise ParameterError(f"{name}={value!r} must be a scalar or a (before, after) pair")
+    return value[0], value[1]
 
-    ``constant``, ``reflect`` (mirror without the edge sample), ``edge`` and
-    ``wrap`` go to ``torch.nn.functional.pad``; ``symmetric`` (mirror with
-    the edge sample) is a gather by index. ``reflect``, ``symmetric`` and
-    ``wrap`` take at most one period, as ``torch`` does: a pad as long as
-    the axis or longer raises. Other modes of ``numpy.pad`` (``linear_ramp``,
-    ``mean``, ``median``, ``maximum``, ``minimum``, ``empty``) are not
-    mapped and raise :class:`ParameterError`.
+
+def _periodic_index(n: int, before: int, after: int, mode: str,
+                    device: torch.device) -> torch.Tensor:
+    """Source sample of each padded position, for the modes that repeat the signal.
+
+    ``reflect`` (mirror without the edge sample) repeats with a period of
+    ``2n - 2``, ``symmetric`` (mirror with it) of ``2n`` and ``wrap`` of ``n``,
+    over as many periods as the pad needs; ``edge`` clamps.
+    """
+    idx = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or (mode == "reflect" and n == 1):
+        return idx.clamp(0, n - 1)
+    if mode == "wrap":
+        return idx.remainder(n)
+    period = 2 * n - 2 if mode == "reflect" else 2 * n
+    m = idx.remainder(period)
+    return torch.where(m < n, m, period - m - int(mode == "symmetric"))
+
+
+def _stat(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """The statistic of padding mode ``mode`` over the last axis, kept as an axis of one."""
+    if mode == "maximum":
+        return x.amax(dim=-1, keepdim=True)
+    if mode == "minimum":
+        return x.amin(dim=-1, keepdim=True)
+    if mode == "mean":
+        return x.mean(dim=-1, keepdim=True)
+    # numpy's median: the mean of the two middle values of an even count
+    s = x.sort(dim=-1).values
+    k = s.shape[-1]
+    return 0.5 * (s[..., (k - 1) // 2:(k - 1) // 2 + 1] + s[..., k // 2:k // 2 + 1])
+
+
+def pad_last(x: torch.Tensor, before: int, after: int, *, mode: str = "constant",
+             constant_values: Any = 0.0, end_values: Any = 0.0,
+             stat_length: Any = None) -> torch.Tensor:
+    """Pad the last axis of ``x`` by ``(before, after)`` samples, as ``numpy.pad`` pads.
+
+    Every mode of ``numpy.pad`` except a callable: ``constant``
+    (``constant_values``), ``edge``, ``reflect`` (mirror without the edge
+    sample), ``symmetric`` (mirror with it) and ``wrap`` over as many periods
+    as the pad needs, ``linear_ramp`` (from ``end_values`` to the edge sample),
+    ``maximum``, ``minimum``, ``mean`` and ``median`` of the ``stat_length``
+    samples nearest each end (None: the whole axis), and ``empty``, which
+    pads with zeros as ``jax.numpy.pad`` does. ``constant_values``,
+    ``end_values`` and ``stat_length`` are scalars or ``(before, after)``
+    pairs. A pad within one period goes to ``torch.nn.functional.pad``, a
+    longer one is a gather by index.
     """
     if mode not in _PAD_MODES:
         raise ParameterError(f"Unsupported pad mode {mode!r}: the port pads {_PAD_MODES}")
     if before == 0 and after == 0:
         return x
     n = x.shape[-1]
-    if mode == "constant":
-        return F.pad(x, (before, after), mode="constant", value=constant_values)
-    limit = {"reflect": n - 1, "symmetric": n, "wrap": n}.get(mode)
-    if limit is not None and max(before, after) > limit:
-        raise ParameterError(
-            f"pad mode {mode!r} takes at most {limit} samples a side from an axis of "
-            f"{n}; got ({before}, {after})"
-        )
-    if mode == "symmetric":
-        idx = torch.arange(-before, n + after, device=x.device)
-        idx = torch.where(idx < 0, -idx - 1, idx)
-        idx = torch.where(idx >= n, 2 * n - 1 - idx, idx)
-        return x.index_select(-1, idx)
-    # F.pad's non-constant modes want (batch, channel, length)
-    out = F.pad(x.reshape(-1, 1, n), (before, after), mode=_TORCH_PAD_MODES[mode])
-    return out.reshape(*x.shape[:-1], out.shape[-1])
+    if mode in ("constant", "empty"):
+        lo, hi = _pair(constant_values if mode == "constant" else 0.0, "constant_values")
+        if lo == hi:
+            return F.pad(x, (before, after), mode="constant", value=float(lo))
+        return torch.cat([x.new_full((*x.shape[:-1], before), float(lo)), x,
+                          x.new_full((*x.shape[:-1], after), float(hi))], dim=-1)
+    if n == 0:
+        raise ParameterError(f"pad mode {mode!r} cannot extend an empty axis")
+    if mode == "linear_ramp":
+        lo, hi = _pair(end_values, "end_values")
+        ramp_up = torch.arange(before, device=x.device, dtype=x.dtype) / max(before, 1)
+        ramp_down = torch.arange(1, after + 1, device=x.device, dtype=x.dtype) / max(after, 1)
+        first, last = x[..., :1], x[..., -1:]
+        return torch.cat([lo + (first - lo) * ramp_up, x, last + (hi - last) * ramp_down], dim=-1)
+    if mode in _STAT_PAD_MODES:
+        lo, hi = _pair(stat_length, "stat_length")
+        lo, hi = n if lo is None else max(1, min(int(lo), n)), n if hi is None else max(1, min(int(hi), n))
+        left, right = _stat(x[..., :lo], mode), _stat(x[..., n - hi:], mode)
+        return torch.cat([left.expand(*x.shape[:-1], before), x,
+                          right.expand(*x.shape[:-1], after)], dim=-1)
+    within = {"reflect": n - 1, "wrap": n, "edge": max(before, after)}.get(mode, -1)
+    if max(before, after) <= within:
+        # F.pad's non-constant modes want (batch, channel, length)
+        out = F.pad(x.reshape(-1, 1, n), (before, after), mode=_TORCH_PAD_MODES[mode])
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+    return x.index_select(-1, _periodic_index(n, before, after, mode, x.device))
 
 
 def _pad_axis(data: torch.Tensor, before: int, after: int, axis: int,
               kwargs: dict) -> torch.Tensor:
-    kwargs = {"mode": "constant", **kwargs}
-    unknown = set(kwargs) - {"mode", "constant_values"}
+    unknown = set(kwargs) - {"mode", "constant_values", "end_values", "stat_length"}
     if unknown:
         raise ParameterError(f"Unsupported padding arguments: {sorted(unknown)}")
     return pad_last(data.movedim(axis, -1), before, after, **kwargs).movedim(-1, axis)
@@ -105,7 +160,8 @@ def _pad_axis(data: torch.Tensor, before: int, after: int, axis: int,
 def pad_center(data: Any, *, size: int, axis: int = -1, **kwargs: Any) -> torch.Tensor:
     """``data`` centred in an axis of length ``size``; an odd remainder goes right.
 
-    ``kwargs`` are ``mode`` (see :func:`pad_last`) and ``constant_values``.
+    ``kwargs`` are :func:`pad_last`'s (``mode``, ``constant_values``, ``end_values``,
+    ``stat_length``).
     """
     data = as_tensor(data)
     slack = size - data.shape[axis]
@@ -119,7 +175,8 @@ def pad_center(data: Any, *, size: int, axis: int = -1, **kwargs: Any) -> torch.
 def fix_length(data: Any, *, size: int, axis: int = -1, **kwargs: Any) -> torch.Tensor:
     """``data`` cut or right-padded to exactly ``size`` elements along ``axis``.
 
-    ``kwargs`` are ``mode`` (see :func:`pad_last`) and ``constant_values``.
+    ``kwargs`` are :func:`pad_last`'s (``mode``, ``constant_values``, ``end_values``,
+    ``stat_length``).
     """
     data = as_tensor(data)
     shortfall = size - data.shape[axis]
@@ -269,3 +326,61 @@ def phasor(angles: Any, *, mag: Any = None) -> torch.Tensor:
     if mag is not None:
         z = z * torch.as_tensor(mag, device=z.device)
     return z
+
+
+def sparsify_rows(x: Any, *, quantile: float = 0.01, dtype: Any = None) -> np.ndarray:
+    """``x`` with each row's smallest entries set to zero, as a dense host array.
+
+    Per row, the entries are taken in rising order of magnitude until their
+    share of the row's total magnitude would reach ``quantile``; those are
+    zeroed, and every entry at least as large as the first one kept stays.
+    A vector is one row. The result has ``x``'s dtype, or ``dtype``.
+    """
+    x = np.atleast_2d(np.asarray(x))
+    if x.ndim != 2:
+        raise ParameterError(f"sparsify_rows takes a vector or a matrix, not shape {x.shape}")
+    if not 0 <= quantile < 1:
+        raise ParameterError(f"quantile={quantile} must lie in [0, 1)")
+    mags = np.abs(x)
+    ranked = np.sort(mags, axis=1)
+    share = np.cumsum(ranked, axis=1)
+    share /= share[:, -1:]
+    first_kept = (share < quantile).sum(axis=1)
+    floor = np.take_along_axis(ranked, first_kept[:, None], axis=1)
+    return np.where(mags >= floor, x, 0).astype(x.dtype if dtype is None else dtype)
+
+
+def _softmask_core(X: torch.Tensor, X_ref: torch.Tensor, *, power: float,
+                   split_zeros: bool) -> torch.Tensor:
+    """:func:`softmask` without its checks, on the inputs' device."""
+    big = torch.maximum(X, X_ref)
+    # below the smallest normal number the ratio means nothing: such cells get the fill
+    empty = big < torch.finfo(big.dtype).tiny
+    fill = 0.5 if split_zeros else 0.0
+    if not np.isfinite(power):
+        return torch.where(empty, fill, (X > X_ref).to(X.dtype))
+    scale = torch.where(empty, 1.0, big)
+    mine = (X / scale) ** power
+    return torch.where(empty, fill, mine / (mine + (X_ref / scale) ** power))
+
+
+def softmask(X: Any, X_ref: Any, *, power: float = 1, split_zeros: bool = False) -> torch.Tensor:
+    """The soft mask ``X**power / (X**power + X_ref**power)``, in ``[0, 1]``.
+
+    Both inputs are divided by their elementwise maximum first, so that no
+    power overflows. ``power=np.inf`` gives the hard mask ``X > X_ref``.
+    Where both are (near) zero the mask is 0.5 with ``split_zeros``, else 0.
+    The inputs must be non-negative floats of one shape; the test for
+    negative values reads one flag back from the device.
+    """
+    X, X_ref = as_tensor(X), as_tensor(X_ref)
+    if X.shape != X_ref.shape:
+        raise ParameterError(f"softmask takes inputs of one shape, not {tuple(X.shape)} and "
+                             f"{tuple(X_ref.shape)}")
+    if power <= 0:
+        raise ParameterError(f"power={power} must be positive")
+    if not X.dtype.is_floating_point:
+        raise ParameterError(f"softmask takes float inputs, not {X.dtype}")
+    if bool((torch.minimum(X.min(), X_ref.min()) < 0).item()):
+        raise ParameterError("softmask takes non-negative inputs")
+    return _softmask_core(X, X_ref.to(X.device), power=float(power), split_zeros=split_zeros)

@@ -17,7 +17,10 @@ GOLDEN_DIR = Path(__file__).parent / "goldens"
 PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs", "filters_chroma",
           "normalize_configs", "stft", "stft_configs", "db_scaling", "chroma_stft",
           "spectrogram_inputs", "istft_roundtrip", "istft_windows", "piptrack",
-          "piptrack_configs", "tuning", "filters_misc", "synth"]
+          "piptrack_configs", "tuning", "filters_misc", "synth", "convert_grids",
+          "default_semantics", "interval_systems", "filters_wavelet", "cqt", "vqt", "vqt_gamma",
+          "pseudo_hybrid_cqt", "icqt", "cqt_configs", "chroma_cqt", "chroma_cens", "chroma_vqt",
+          "hpss_margin", "hpss_configs"]
 
 
 @pytest.fixture(autouse=True)
