@@ -15,9 +15,12 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    kernel carried it and that the output is right;
 4. times the kernel, its plain version, a torch.stft + matmul yardstick,
    the end-to-end path and its dB and MFCC steps, with the roofline bound;
-4a. holds the dB kernel (``csrc/db_scale.cu``) against its plain version on
-   NaN-filled memory at the main shape and at ragged ones, checks that the
-   peak is exactly 0 dB with ``ref=max``, and times both beside the bound;
+4a. holds the dB kernel (``csrc/db_scale.cu``) against its plain version,
+   bit for bit, on NaN-filled memory at the main shape and at ragged ones,
+   in both designs (a cluster of blocks a channel; two passes for a channel
+   beyond L2 or a small one), on the 16-byte and the scalar path, checks
+   that the peak is exactly 0 dB with ``ref=max``, and times both designs,
+   the plain version and the bound;
 4b. drives the feature stack (``entry.feature_stack()``: mfcc, chroma_stft,
    spectral_centroid, spectral_rolloff, each from ``y``) on the same
    buffer, checks that it launched the mel kernel four times and the dB
@@ -39,13 +42,16 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    convergence and the seed's determinism, and times the path end to end
    and part by part, with its peak memory;
 4e. holds ``estimate_tuning`` against a float64 numpy version on detuned
-   tones, ``piptrack`` with a callable ``ref`` on the card, drives ``chroma_stft`` with the default (estimated) tuning on the
-   main buffer against float64, and times both;
+   tones, ``piptrack`` with ``ref=np.mean``, ``np.sum`` and ``torch.mean``
+   on the card against the CPU run (``np.median`` raises there), drives
+   ``chroma_stft`` with the default (estimated) tuning on the main buffer
+   against float64, and times both;
 4f. holds the sliding-median kernel (``csrc/median_filter.cu``, behind HPSS)
    against its plain version, bit for bit with NaN where the plain version
    has NaN, on NaN-filled memory: every window width it instantiates (2 to
    64), both axes, contiguous and time-major layouts, axes shorter than half
-   the window, infinities, zeros of both signs, leading dims that must be
+   the window, axis lengths around the kernel's group of outputs and its run,
+   1025 and 8193, infinities, zeros of both signs, leading dims that must be
    copied;
 4g. drives config 4 (``entry.cqt_hpss()``: ``cqt`` at 84 bins, 12 to the
    octave, and ``effects.hpss``) on the same buffer, checks that it launched
@@ -426,7 +432,9 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
 
 
 def db_cases(torch, rng, device, mel):
-    """(label, fn name, S, kwargs): the main shape and ragged ones for the dB kernel."""
+    """(label, fn name, S, kwargs): the main shape and ragged ones for the dB kernel, in both
+    designs (a channel the cluster design takes, one beyond the L2 cache), the 16-byte and
+    the scalar path, one channel and 16."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
@@ -436,10 +444,23 @@ def db_cases(torch, rng, device, mel):
     tiny = power(2, 40, 31) * 1e-12
     tiny[0, :5] = 1e-14
     unaligned = t(power(4 * 300 + 1))[1:]   # N % 4 == 0 behind a 4-byte offset
+    odd16 = t(power(16, 128, 8191))         # cluster design, N % 4 != 0: the scalar path
+    odd16[3, 5, 7] = float("nan")
+    one = t(power(1, 513, 2049))            # one channel, cluster design, scalar path
+    one[0, 100, 100] = 1e6                  # a lone peak far above the rest
     return [
         ("main shape, ref 1", "power_to_db", mel, {}),
         ("main shape, ref max", "power_to_db", mel, dict(ref=np.max)),
-        ("main shape, whole array", "power_to_db", mel, dict(ref=np.max, axes=None)),
+        ("main shape, top_db None", "power_to_db", mel, dict(top_db=None)),
+        ("main shape, whole array (one channel beyond L2)", "power_to_db", mel,
+         dict(ref=np.max, axes=None)),
+        ("16 channels of 128 x 8191 (scalar), a NaN in channel 3", "power_to_db", odd16,
+         dict(ref=np.max)),
+        ("1 channel of 513 x 2049 (scalar), a lone peak", "power_to_db", one, dict(ref=np.max)),
+        ("1-d of 15000001 (scalar, beyond L2)", "power_to_db", t(power(15000001)),
+         dict(ref=np.max, top_db=None)),
+        ("amplitude_to_db 4 x 1025 x 300, ref max", "amplitude_to_db", t(rng.randn(4, 1025, 300)),
+         dict(ref=np.max, top_db=60.0)),
         ("1-d of 1001", "power_to_db", t(power(1001)), dict(ref=np.max)),
         ("1-d of 1200 off a 16-byte boundary", "power_to_db", unaligned, dict(ref=np.max)),
         ("one channel of 37 x 53", "power_to_db", t(power(1, 37, 53)), {}),
@@ -455,13 +476,18 @@ def db_cases(torch, rng, device, mel):
     ]
 
 
+DB_PR4_MS = 0.0812  # the two-pass kernel of PR 4 on config 1's mel (PERF.md section 6)
+
+
 def db_kernel_phase(torch, L, rng, device, mel) -> dict:
-    """Phase 4a: the dB kernel against its plain version, then timed. Its JSON entry, less launches."""
+    """Phase 4a: the dB kernel against its plain version in both designs, then timed. Its JSON
+    entry, less launches."""
     from librosa_tpu_torch.core.spectrum import _db_axes
     from librosa_tpu_torch.ops import db_scale
 
     worst = 0.0
     cases = db_cases(torch, rng, device, mel)
+    designs = set()
     for label, fn, S, kw in cases:
         before = db_scale.launches
         poison(torch, tuple(S.shape), device)
@@ -471,42 +497,60 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
         full = dict(dict(ref=1.0, amin=1e-5 if fn == "amplitude_to_db" else 1e-10, top_db=80.0),
                     **kw)
         axes = _db_axes(S.ndim, full.pop("axes", "auto"))
+        design = db_scale.design(S, axes)
+        designs.add(design)
         want = db_scale.db_scale_reference(S, axes=axes, amplitude=fn == "amplitude_to_db",
                                            **full)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"dB {label}: {int((~torch.isfinite(got)).sum())} of "
-                                 f"{got.numel()} values unwritten or not finite")
-        err = float((got - want).abs().max())
+        nan_want = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan_want):
+            raise AssertionError(f"dB {label}: NaN where the torch ops have none, or none where "
+                                 "they have NaN (or values left unwritten)")
+        if not bool(torch.isfinite(got[~nan_want]).all()):
+            raise AssertionError(f"dB {label}: values unwritten or not finite")
+        err = float((got - want)[~nan_want].abs().max())
         worst = max(worst, err)
-        note = "bit-equal" if torch.equal(got, want) else "not bit-equal"
+        equal = torch.equal(got.masked_fill(nan_want, 0.0), want.masked_fill(nan_want, 0.0))
+        note = "bit-equal" if equal else "not bit-equal"
         if full["ref"] is np.max:
             dims = None if axes is None else tuple(axes)
             peak = got.amax() if dims is None else got.amax(dim=dims)
+            peak = peak[~torch.isnan(peak)]
             if not bool((peak == 0).all()):
                 raise AssertionError(f"dB {label}: the peak is not exactly 0 dB with ref=max: "
                                      f"{peak.flatten()[:4].tolist()}")
             note += ", peak exactly 0 dB"
-        print(f"dB kernel vs plain  {label} {tuple(S.shape)}: max |err| {err:.3e} dB ({note})")
-        if not err <= DB_ATOL:
-            raise AssertionError(f"dB kernel vs plain {label}: {err:.3e} dB > {DB_ATOL}")
-    print(f"dB kernel vs plain: {len(cases)} cases passed, each on NaN-filled memory, "
-          f"atol {DB_ATOL} dB")
+        print(f"dB kernel vs plain  {label} {tuple(S.shape)}: {design} design "
+              f"({1 if design == 'cluster' else 2} launch{'' if design == 'cluster' else 'es'} "
+              f"per call), max |err| {err:.3e} dB ({note})")
+        if not (equal and err <= DB_ATOL):
+            raise AssertionError(f"dB kernel vs plain {label}: not bit-equal, {err:.3e} dB")
+    if designs != {"cluster", "two-pass"}:
+        raise AssertionError(f"the dB cases reached the designs {designs}, not both")
+    print(f"dB kernel vs plain: {len(cases)} cases bit-equal (NaN where the torch ops have "
+          "NaN), each on NaN-filled memory")
 
     axes = (-2, -1)
     kw = dict(ref=1.0, amin=1e-10, top_db=80.0, axes=axes)
     ms = time_ms(torch, lambda: db_scale.db_scale(mel, **kw), 20)
     ms_max = time_ms(torch, lambda: db_scale.db_scale(mel, **dict(kw, ref=np.max)), 20)
+    by_design = {}
+    for label, cluster in (("cluster of 16", 16), ("cluster of 8", 8), ("two-pass", 0)):
+        by_design[label] = time_ms(torch, lambda: db_scale._launch(mel, amplitude=False,
+                                                                   cluster=cluster, **kw), 20)
     plain_ms = time_ms(torch, lambda: db_scale.db_scale_reference(mel, **kw), 5)
     channels, n, parts = db_scale.launch_geometry(mel, axes)
-    # the function reads its input once and writes its output once; a kernel whose input
-    # exceeds the L2 cache must read it a second time after the peak is known
+    # the function reads its input once and writes its output once
     bound_ms = 1e3 * 8 * mel.numel() / H100_HBM_BYTES_S
     two_pass_ms = 1e3 * 12 * mel.numel() / H100_HBM_BYTES_S
-    print(f"db_scale kernel on {tuple(mel.shape)} ({channels} channels of {n}, {parts} parts "
-          f"each): {ms:.4f} ms (ref max {ms_max:.4f} ms), plain torch ops {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms (bytes: {8 * mel.numel()} read and written once; "
-          f"{two_pass_ms:.4f} ms for the {12 * mel.numel()} bytes of two reads and a write)")
+    print(f"db_scale launch geometry on {tuple(mel.shape)}, axes {axes}: {channels} channels of "
+          f"{n} elements ({4 * n} bytes), two-pass parts {parts}; design "
+          f"{db_scale.design(mel, axes)} (cluster of {db_scale.CLUSTER})")
+    print(f"db_scale kernel on {tuple(mel.shape)}: {ms:.4f} ms (ref max {ms_max:.4f} ms; PR 4's "
+          f"two-pass kernel {DB_PR4_MS} ms), plain torch ops {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes: {8 * mel.numel()} read and written once; {two_pass_ms:.4f} "
+          f"ms for the {12 * mel.numel()} bytes of two reads and a write); by design: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in by_design.items()))
     return {
         "name": "db_scale",
         "route": "cuda",
@@ -521,7 +565,18 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
         "two_pass_bound_ms": two_pass_ms,
+        "design": db_scale.design(mel, axes),
+        "ms_by_design": by_design,
+        "pr4_ms": DB_PR4_MS,
     }
+
+
+def stft_project(torch, y, window, basis, n_fft, hop, power):
+    """The library yardstick for the stft_mel kernel: torch.stft, |.|^power, torch.matmul."""
+    spec = torch.stft(y, n_fft, hop, window=window, center=True, pad_mode="constant",
+                      return_complex=True)
+    mag = spec.real.square() + spec.imag.square() if power == 2.0 else spec.abs() ** power
+    return torch.matmul(basis, mag)
 
 
 def features64(y, window, mel_basis, chroma_basis, *, n_fft, hop):
@@ -612,16 +667,20 @@ def feature_stack_phase(torch, L, device, y, win, mel_basis, k1_ms: float) -> di
         ms = time_ms(torch, lambda: fused_stft._fused(y, win_d, basis, bands, power=power,
                                                       **kw), 10)
         plain_ms = time_ms(torch, plain, 3)
+        library_ms = time_ms(torch, lambda: stft_project(torch, y, win_d, basis, n_fft, hop,
+                                                         power), 3)
         frames = MAIN_SHAPE[0] * n_frames
         out_bytes = 4 * basis.shape[0] * frames
         bytes_ms = 1e3 * (4 * y.numel() + out_bytes) / H100_HBM_BYTES_S
         ops_ms = 1e3 * (fused_stft.flops_per_frame(n_fft, int(torch.count_nonzero(basis)))
                         * frames / H100_F32_FLOP_S)
-        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        times[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=max(bytes_ms, ops_ms),
                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                             snr_db=worst, max_abs_err=max_err)
         print(f"stft_mel with the {label} basis ({basis.shape[0]} rows, power {power:g}) at the "
-              f"main shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"main shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch.stft, "
+              f"|.|^{power:g}, exact-f32 torch.matmul) {library_ms:.4f} ms, bound "
               f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f} ms with an output of "
               f"{out_bytes} bytes, operations {ops_ms:.4f} ms); per track at least "
               f"{worst:.1f} dB against plain (floor {floor}), max |err| {max_err:.3e}")
@@ -1043,24 +1102,33 @@ def tuning_phase(torch, L, device, y, win) -> dict:
           f"{want:+.2f}")
     if not (abs(got - want) <= TUNING_RESOLUTION + 1e-9 and abs(got - detune) <= 0.03):
         raise AssertionError(f"estimate_tuning {got} against float64 {want}, tones at {detune}")
-    # a callable ref other than a maximum: a torch reduction on the card, never a host copy
+    # a callable ref other than a maximum: a reduction on the card, never a host copy. np.mean
+    # and np.sum run as torch's reductions (as the JAX function runs them under jit), torch.mean
+    # as it is; np.median, which the JAX function cannot trace, raises
     S_t = L.stft(tones[:2], n_fft=n_fft, hop_length=hop).abs()
-    p_card, _ = L.piptrack(S=S_t, sr=SR, ref=torch.mean)
-    p_host, _ = L.piptrack(S=S_t.cpu(), sr=SR, ref=np.mean)
-    same = float(((p_card > 0).cpu() == (p_host > 0)).double().mean())
+    agree = {}
+    for name, card_ref, host_ref in (("np.mean", np.mean, np.mean), ("np.sum", np.sum, np.sum),
+                                     ("torch.mean", torch.mean, np.mean)):
+        p_card, m_card = L.piptrack(S=S_t, sr=SR, ref=card_ref)
+        p_host, m_host = L.piptrack(S=S_t.cpu(), sr=SR, ref=host_ref)
+        if not p_card.is_cuda:
+            raise AssertionError(f"piptrack ref={name} left the card")
+        agree[name] = float(((p_card > 0).cpu() == (p_host > 0)).double().mean())
+        del p_card, m_card, p_host, m_host
     try:
-        L.piptrack(S=S_t, sr=SR, ref=np.mean)
+        L.piptrack(S=S_t, sr=SR, ref=np.median)
     except L.ParameterError:
         refused = True
     else:
         refused = False
-    print(f"piptrack ref=torch.mean on the card vs ref=np.mean on the host, same magnitudes: "
-          f"peaks agree in {100 * same:.4f} % of {p_host.numel()} cells; np.mean on a CUDA "
-          f"tensor {'raises' if refused else 'does not raise'}")
-    if not (p_card.is_cuda and same >= 0.9999 and refused):
-        raise AssertionError(f"piptrack with a callable ref: {same} of the cells agree, "
+    print("piptrack on the card against the CPU run, same magnitudes, peaks that agree: "
+          + ", ".join(f"ref={k} {100 * v:.4f} %" for k, v in agree.items())
+          + f" of {S_t.numel()} cells; ref=np.median on a CUDA tensor "
+          + ("raises ParameterError" if refused else "does not raise"))
+    if not (min(agree.values()) >= 0.9999 and refused):
+        raise AssertionError(f"piptrack with a callable ref: agreement {agree}, "
                              f"refused={refused}")
-    del tones, spec, S_t, p_card, p_host
+    del tones, spec, S_t
 
     # chroma_stft with the default tuning on the main buffer, against float64 at that tuning
     fused_stft.launches = 0
@@ -1107,6 +1175,9 @@ def tuning_phase(torch, L, device, y, win) -> dict:
 # 4f, 4g: the sliding median kernel, and config 4 (constant-Q transform and HPSS)
 # ---------------------------------------------------------------------------
 
+# PR 6's median kernel (one delete-and-insert pass per output), size 31 on config 4's |STFT|
+MEDIAN_PR6_MS = {"harmonic (time)": 2.4983, "percussive (frequency)": 2.8758}
+
 
 def median_bit_equal(torch, got, want) -> bool:
     """NaN at the same places and the same bits everywhere else."""
@@ -1136,6 +1207,27 @@ def median_cases(torch, rng, device):
                 cases.append((f"{shape} size {size} axis {axis}", x, size, axis))
                 cases.append((f"{shape} size {size} axis {axis} time-major", time_major, size,
                               axis))
+    # axis lengths around the window, the kernel's group of outputs and its run of 32 (those of
+    # tests/test_torch_median_select.py), both axes, and the main path's 1025 and 8193 on a row
+    from librosa_tpu_torch.ops import median
+
+    def hard(*shape):
+        x = rng.randn(*shape).astype(np.float32)
+        flat = x.reshape(-1)
+        flat[::7] = np.round(flat[::7])
+        flat[::13] = np.nan
+        flat[1::17] = -0.0
+        flat[2::19] = np.inf
+        return torch.from_numpy(x).to(device)
+
+    for size in (2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 48, 63, 64):
+        k = median.group_size(size)
+        for n in sorted({n for n in (1, 2, size - 1, size, size + 1, k - 1, k, k + 1, 31, 32, 33)
+                         if n >= 1}):
+            cases.append((f"size {size} (group {k}), {n} along axis -1", hard(3, n), size, -1))
+            cases.append((f"size {size} (group {k}), {n} along axis -2", hard(n, 3), size, -2))
+        for n in (1025, 8193):
+            cases.append((f"size {size}, one row of {n}", hard(1, n), size, -1))
     x = torch.from_numpy(rng.randn(4, 6, 50, 40).astype(np.float32)).to(device)
     cases.append(("(6, 4, 50, 40) leading dims that do not fold (copied)", x.transpose(0, 1), 31,
                   -1))
@@ -1172,8 +1264,9 @@ def median_kernel_phase(torch, L, rng, device) -> None:
     if L.decompose._median(cases[0][1], 1, -1) is not cases[0][1]:
         raise AssertionError("median of size 1 is not its input")
     print(f"median kernel vs plain: {len(cases)} cases bit-equal (NaN where the plain version "
-          f"has NaN), each on NaN-filled memory; sizes 2-64, both axes, both layouts, the "
-          f"output in the input's layout; one input copied for leading dims that do not fold")
+          f"has NaN), each on NaN-filled memory; sizes 2-64, both axes, both layouts, axis "
+          f"lengths around the window, the group and the run, 1025 and 8193; the output in the "
+          f"input's layout; one input copied for leading dims that do not fold")
 
 
 def hpss64(y, window, *, n_fft, hop, kernel=31):
@@ -1295,13 +1388,15 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
         bound_bytes = 2 * 4 * S.numel()
         bound_ms = 1e3 * bound_bytes / H100_HBM_BYTES_S
         entry[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms)
+                           bound_ms=bound_ms, pr6_ms=MEDIAN_PR6_MS[name])
         print(f"median_filter kernel, size 31 along the {name} axis of |STFT| {tuple(S.shape)} "
-              f"(strides {S.stride()}): {kernel_ms:.4f} ms, plain (pad, unfold, torch.median; "
+              f"(strides {S.stride()}): {kernel_ms:.4f} ms (PR 6's kernel "
+              f"{MEDIAN_PR6_MS[name]} ms), plain (pad, unfold, torch.median; "
               f"{MAIN_SHAPE[0]} tracks one by one) {plain_ms:.4f} ms, torch.median over the "
               f"unfolded padded view ({MAIN_SHAPE[0]} tracks) {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms (bytes: {bound_bytes} read and written once); bit-equal on "
-              f"all {MAIN_SHAPE[0]} tracks")
+              f"all {MAIN_SHAPE[0]} tracks; {median.selection_ops(31)} minimum/maximum "
+              f"operations per output (ops/median.py:selection_ops)")
 
     # the parts of the path alone
     D = L.stft(y, n_fft=n_fft, hop_length=hop)
@@ -1364,6 +1459,7 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
     k1_ms = time_ms(torch, lambda: fused_stft._fused(y, pwin, basis, bands, power=1.0, **kw), 10)
     k1_plain_ms = time_ms(torch, lambda: fused_stft.stft_mel_reference(y, pwin, basis, power=1.0,
                                                                        **kw), 3)
+    k1_library_ms = time_ms(torch, lambda: stft_project(torch, y, pwin, basis, p_fft, hop, 1.0), 3)
     frames = MAIN_SHAPE[0] * n_frames
     bytes_ms = 1e3 * (4 * y.numel() + 4 * 36 * frames) / H100_HBM_BYTES_S
     ops_ms = 1e3 * (fused_stft.flops_per_frame(p_fft, int(torch.count_nonzero(basis)))
@@ -1371,13 +1467,15 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
     before = fused_stft.launches
     hybrid_ms = time_ms(torch, lambda: L.hybrid_cqt(y, res_type="polyphase", **cq), 1, groups=2)
     hybrid_launches = (fused_stft.launches - before) // 3
-    print(f"stft_mel with the pseudo-CQT basis: {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
+    print(f"stft_mel with the pseudo-CQT basis: {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
+          f"library (torch.stft, |.|, exact-f32 torch.matmul) {k1_library_ms:.4f} ms, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); "
           f"hybrid_cqt at 84 bins {hybrid_ms:.4f} ms with {hybrid_launches} stft_mel launch per "
           "call")
     if hybrid_launches != 1:
         raise AssertionError(f"hybrid_cqt launched stft_mel {hybrid_launches} times per call")
-    k1 = dict(ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=max(bytes_ms, ops_ms),
+    k1 = dict(ms=k1_ms, plain_ms=k1_plain_ms, library_ms=k1_library_ms,
+              bound_ms=max(bytes_ms, ops_ms),
               bound_by="bytes" if bytes_ms >= ops_ms else "operations", snr_db=worst,
               max_abs_err=max_err, rows=36, n_fft=p_fft)
     harm_entry = entry["harmonic (time)"]
@@ -1398,6 +1496,7 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
         "bound_by": "bytes",
         "library_ms": harm_entry["library_ms"],
         "by_axis": entry,
+        "selection_ops_per_output": median.selection_ops(31),
     }
     return {"launches": counts, "median_filter": median_entry, "pseudo_cqt_basis": k1,
             "e2e_ms": e2e_ms}

@@ -18,7 +18,7 @@ import torch
 from .._device import as_tensor, device_table
 from ..ops.db_scale import is_max_ref
 from ..util.exceptions import ParameterError
-from ..util.utils import expand_to, localmax
+from ..util.utils import _device_reduction, expand_to, localmax
 from .convert import fft_frequencies
 from .spectrum import _spectrogram
 
@@ -68,8 +68,10 @@ def piptrack(
     (by the stft_mel kernel with the identity basis where it applies). A
     maximum as ``ref`` (``np.max``, ``torch.amax`` ...) runs on ``S``'s device.
     Any other callable is, for ``S`` on the CPU, a numpy reduction called
-    with ``axis=-2``, and for ``S`` on the card a torch reduction called with
-    ``dim=-2`` (``torch.mean``); a numpy function there raises
+    with ``axis=-2``. For ``S`` on the card, ``np.mean``, ``np.sum``,
+    ``np.std``, ``np.var``, ``np.prod`` and ``np.min`` run as the torch
+    reduction of the same name, a torch reduction is called with ``dim=-2``
+    (``torch.mean``), and any other numpy function (``np.median``) raises
     ``ParameterError`` rather than copy ``S`` to the host.
     """
     S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length,
@@ -83,17 +85,33 @@ def _frame_reference(S: torch.Tensor, ref: Callable) -> torch.Tensor:
     """``ref`` of each frame of ``S``, ``(..., 1, T)``, computed where ``S`` lies.
 
     On the CPU ``ref`` is a numpy reduction and sees ``S``'s memory with
-    ``axis=-2``. On the card it is a torch reduction called with ``dim=-2``
-    (one that returns values and indices gives its values); a numpy
-    function there would need the whole spectrogram on the host and raises.
+    ``axis=-2``. On the card see :func:`_device_frame_reference`.
     """
     if S.device.type == "cpu":
         host = np.expand_dims(ref(S.detach().numpy(), axis=-2), -2)
         return torch.as_tensor(host, dtype=S.dtype)
+    return _device_frame_reference(S, ref)
+
+
+def _device_frame_reference(S: torch.Tensor, ref: Callable) -> torch.Tensor:
+    """``ref`` of each frame of ``S`` by torch on ``S``'s device: the branch the card takes.
+
+    A numpy reduction that numpy hands to the array's own method
+    (``np.mean``, ``np.sum``, ``np.std``, ...) runs as the torch reduction of
+    the same name, as the JAX function runs it under ``jit``. Any other numpy
+    function (``np.median``) would need the spectrogram on the host and
+    raises ``ParameterError``, as the JAX function raises for it. Anything
+    else is a torch reduction called with ``dim=-2`` (one that returns values
+    and indices gives its values).
+    """
+    out = _device_reduction(ref, S, -2)
+    if out is not None:
+        return out.to(S.dtype)
     if (getattr(ref, "__module__", None) or "").split(".")[0] == "numpy":
         raise ParameterError(
-            f"ref={getattr(ref, '__name__', ref)!r} is a numpy reduction and S lies on {S.device}: "
-            "pass a maximum, a number, or a torch reduction that takes dim= (torch.mean, ...)")
+            f"ref={getattr(ref, '__name__', ref)!r} is a numpy function that the card cannot "
+            f"run on S ({S.device}): pass a maximum, a number, a numpy reduction such as "
+            "np.mean, or a torch reduction that takes dim=")
     out = ref(S, dim=-2)
     if not isinstance(out, torch.Tensor):
         out = out.values

@@ -4,8 +4,9 @@ Each source under ``librosa_tpu_torch/csrc/`` compiles with ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) for ``sm_90a``. The library goes into
 ``librosa_tpu_torch/_build/`` under a name that carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library
-is never loaded. ``nvcc`` is found on ``PATH`` or under ``$CUDA_HOME/bin``.
+source, the headers in ``csrc/`` and the flags, so an edited source is
+rebuilt and a stale library is never loaded. ``nvcc`` is found on ``PATH``
+or under ``$CUDA_HOME/bin``.
 
 Nothing here runs at import: the CPU tests import every module on machines
 with no ``nvcc``.
@@ -49,6 +50,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

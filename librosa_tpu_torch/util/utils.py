@@ -21,6 +21,36 @@ _STAT_PAD_MODES = ("maximum", "minimum", "mean", "median")
 _PAD_MODES = tuple(_TORCH_PAD_MODES) + ("symmetric", "linear_ramp", "empty") + _STAT_PAD_MODES
 
 
+# numpy reductions that hand an array that is not an ndarray to its own method (as numpy
+# does for a JAX array), by the name of the torch reduction that computes the same
+_NUMPY_REDUCTIONS = {np.mean: "mean", np.sum: "sum", np.max: "amax", np.amax: "amax",
+                     np.min: "amin", np.amin: "amin", np.std: "std", np.var: "var",
+                     np.prod: "prod"}
+
+
+def _device_reduction(ref: Any, x: torch.Tensor, axis: Any) -> Optional[torch.Tensor]:
+    """``ref(x, axis=axis, keepdims=True)`` by torch on ``x``'s device, or None.
+
+    ``ref`` is one of the numpy reductions that numpy hands to an array's
+    own ``.mean``, ``.sum``, ... method (``np.mean``, ``np.sum``,
+    ``np.max``/``np.amax``, ``np.min``/``np.amin``, ``np.std``, ``np.var``,
+    ``np.prod``); for any other ``ref`` the result is None. ``axis`` is an
+    int, a tuple of ints or None (every axis); ``np.std`` and ``np.var``
+    keep numpy's ``ddof=0``. Nothing is copied to the host.
+    """
+    name = next((n for f, n in _NUMPY_REDUCTIONS.items() if ref is f), None)
+    if name is None:
+        return None
+    dims = tuple(range(x.ndim)) if axis is None else tuple(np.atleast_1d(axis).tolist())
+    if name in ("std", "var"):
+        return getattr(x, name)(dim=dims, keepdim=True, correction=0)
+    if name == "prod":  # one axis at a time
+        for d in dims:
+            x = x.prod(dim=d, keepdim=True)
+        return x
+    return getattr(x, name)(dim=dims, keepdim=True)
+
+
 def tiny(x: Any) -> float:
     """Smallest positive normal number of the float type of ``x``.
 

@@ -16,6 +16,7 @@ import librosa_tpu as lt
 import librosa_tpu_torch as L
 from librosa_tpu_torch.core import spectrum as port_spectrum
 from librosa_tpu_torch.ops import db_scale
+from librosa_tpu_torch.util import utils as port_utils
 
 ATOL_DB = 1e-4
 
@@ -69,6 +70,36 @@ def test_plain_version_with_callable_and_array_refs_matches_jax():
                                np.asarray(lt.power_to_db(S, ref=ref)), rtol=0, atol=ATOL_DB)
     with pytest.raises(L.ParameterError, match="axis"):
         L.power_to_db(S, ref=lambda x: 1.0)
+
+
+@pytest.mark.parametrize("amplitude", [False, True], ids=["power", "amplitude"])
+@pytest.mark.parametrize("ref", [np.mean, np.sum], ids=["np_mean", "np_sum"])
+@pytest.mark.parametrize("axes", ["auto", None, (-1,)], ids=["auto", "whole", "last"])
+def test_numpy_reductions_as_ref_run_on_the_device_and_match_jax(monkeypatch, amplitude, ref,
+                                                                 axes):
+    # the branch a CUDA tensor takes, here on a CPU tensor: the reduction by torch, no host copy
+    S = _power(3, 24, 17, seed=6)
+    jfn = lt.amplitude_to_db if amplitude else lt.power_to_db
+    want = np.asarray(jfn(S, ref=ref, axes=axes))
+    resolved = port_spectrum._db_axes(S.ndim, axes)
+    level = port_utils._device_reduction(ref, torch.from_numpy(S), resolved)
+    np.testing.assert_allclose(level.numpy(), ref(S, axis=resolved, keepdims=True), rtol=1e-5)
+    monkeypatch.setattr(torch.Tensor, "numpy", lambda *a, **k: pytest.fail("host copy"))
+    got = db_scale.db_scale_reference(torch.from_numpy(S), ref=ref, axes=resolved,
+                                      amin=1e-5 if amplitude else 1e-10, amplitude=amplitude)
+    monkeypatch.undo()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL_DB)
+
+
+def test_design_follows_the_channel_size():
+    lo, hi = db_scale.CLUSTER_BYTES
+    assert db_scale.design(torch.zeros(1).expand(16, 128, 8193), (-2, -1)) == "cluster"
+    assert db_scale.design(torch.zeros(1).expand(16, 128, 8193), None) == "two-pass"
+    assert db_scale.design(torch.zeros(1).expand(4, lo // 4), (-1,)) == "cluster"
+    assert db_scale.design(torch.zeros(1).expand(4, lo // 4 - 1), (-1,)) == "two-pass"
+    assert db_scale.design(torch.zeros(1).expand(2, hi // 4), (-1,)) == "cluster"
+    assert db_scale.design(torch.zeros(1).expand(2, hi // 4 + 1), (-1,)) == "two-pass"
+    assert db_scale.design(torch.zeros(2048, 33), (-1,)) == "two-pass"
 
 
 F32 = torch.zeros(2, 8, 6)

@@ -7,6 +7,7 @@ tuning as the same float (both pick a cell of the same histogram), 110 dB on
 
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -144,13 +145,47 @@ def test_piptrack_callable_ref_runs_where_the_spectrogram_lies():
     assert tuple(host.shape) == (1, S.shape[-1])
     # a torch reduction gives the same level, and one with indices gives its values
     torch.testing.assert_close(host, torch.mean(S, dim=-2, keepdim=True), rtol=1e-5, atol=0)
-    # off the CPU the callable gets the tensor (dim=-2); a numpy function raises, no host copy
+    # off the CPU the callable gets the tensor (dim=-2), a numpy reduction that numpy hands to
+    # the array's own method runs as torch's, any other numpy function raises: no host copy
     away = S.to("meta")
     assert port_pitch._frame_reference(away, torch.mean).shape == (1, S.shape[-1])
     assert port_pitch._frame_reference(away, torch.median).shape == (1, S.shape[-1])
     assert port_pitch._frame_reference(away, torch.mean).device.type == "meta"
-    with pytest.raises(L.ParameterError, match="numpy reduction"):
-        port_pitch._frame_reference(away, np.mean)
+    assert port_pitch._frame_reference(away, np.mean).device.type == "meta"
+    with pytest.raises(L.ParameterError, match="numpy function"):
+        port_pitch._frame_reference(away, np.median)
+
+
+REDUCTIONS = [np.mean, np.sum, np.std, np.var, np.min, np.amin, np.max, np.amax, np.prod]
+
+
+@pytest.mark.parametrize("ref", REDUCTIONS, ids=[f.__name__ for f in REDUCTIONS])
+def test_device_reference_of_numpy_reductions_matches_jax(ref):
+    # the card's branch, run here on a CPU tensor: the reduction by torch, as JAX runs it
+    S = np.abs(np.asarray(lt.stft(_chirp(n=SR // 2), n_fft=512))).astype(np.float32)
+    if ref is np.prod:
+        S = 1.0 + 0.01 * S / S.max()  # a product over the bins that neither under- nor overflows
+    got = port_pitch._device_frame_reference(torch.from_numpy(S), ref)
+    want = np.expand_dims(np.asarray(ref(jnp.asarray(S), axis=-2)), -2)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("ref", [np.mean, np.sum], ids=["np_mean", "np_sum"])
+def test_piptrack_on_the_cards_branch_matches_jax(monkeypatch, ref):
+    S = np.abs(np.asarray(lt.stft(_chirp()))).astype(np.float32)
+    jp, jm = lt.piptrack(S=S, sr=SR, ref=ref)
+    monkeypatch.setattr(port_pitch, "_frame_reference", port_pitch._device_frame_reference)
+    monkeypatch.setattr(torch.Tensor, "numpy", lambda *a, **k: pytest.fail("host copy"))
+    p, m = L.piptrack(S=torch.from_numpy(S), sr=SR, ref=ref)
+    monkeypatch.undo()
+    assert _snr(p, jp) >= PIP_SNR_DB and _snr(m, jm) >= PIP_SNR_DB
+    # np.median: the JAX function cannot trace it, and the card's branch refuses it
+    with pytest.raises(Exception):
+        lt.piptrack(S=S, sr=SR, ref=np.median)
+    monkeypatch.setattr(port_pitch, "_frame_reference", port_pitch._device_frame_reference)
+    with pytest.raises(L.ParameterError, match="numpy function"):
+        L.piptrack(S=torch.from_numpy(S), sr=SR, ref=np.median)
 
 
 def test_piptrack_from_spectrogram_and_stereo():
