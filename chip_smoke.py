@@ -16,11 +16,11 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
 4. times the kernel, its plain version, a torch.stft + matmul yardstick,
    the end-to-end path and its dB and MFCC steps, with the roofline bound;
 4a. holds the dB kernel (``csrc/db_scale.cu``) against its plain version,
-   bit for bit, on NaN-filled memory at the main shape and at ragged ones,
-   in both designs (a cluster of blocks a channel; two passes for a channel
-   beyond L2 or a small one), on the 16-byte and the scalar path, checks
-   that the peak is exactly 0 dB with ``ref=max``, and times both designs,
-   the plain version and the bound;
+   bit for bit, on NaN-filled memory at the main shape and at ragged ones
+   (16 channels and one, channels of a few MB and one beyond L2, the
+   16-byte and the scalar path, ``top_db=None``), checks that the peak is
+   exactly 0 dB with ``ref=max``, and times it beside the plain version and
+   the bound;
 4b. drives the feature stack (``entry.feature_stack()``: mfcc, chroma_stft,
    spectral_centroid, spectral_rolloff, each from ``y``) on the same
    buffer, checks that it launched the mel kernel four times and the dB
@@ -432,9 +432,9 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
 
 
 def db_cases(torch, rng, device, mel):
-    """(label, fn name, S, kwargs): the main shape and ragged ones for the dB kernel, in both
-    designs (a channel the cluster design takes, one beyond the L2 cache), the 16-byte and
-    the scalar path, one channel and 16."""
+    """(label, fn name, S, kwargs): the main shape and ragged ones for the dB kernel: channels
+    of a few MB and one beyond the L2 cache, the 16-byte and the scalar path, one channel and
+    16."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
@@ -444,9 +444,9 @@ def db_cases(torch, rng, device, mel):
     tiny = power(2, 40, 31) * 1e-12
     tiny[0, :5] = 1e-14
     unaligned = t(power(4 * 300 + 1))[1:]   # N % 4 == 0 behind a 4-byte offset
-    odd16 = t(power(16, 128, 8191))         # cluster design, N % 4 != 0: the scalar path
+    odd16 = t(power(16, 128, 8191))         # N % 4 != 0: the scalar path
     odd16[3, 5, 7] = float("nan")
-    one = t(power(1, 513, 2049))            # one channel, cluster design, scalar path
+    one = t(power(1, 513, 2049))            # one channel of 4.2 MB, scalar path
     one[0, 100, 100] = 1e6                  # a lone peak far above the rest
     return [
         ("main shape, ref 1", "power_to_db", mel, {}),
@@ -476,18 +476,19 @@ def db_cases(torch, rng, device, mel):
     ]
 
 
-DB_PR4_MS = 0.0812  # the two-pass kernel of PR 4 on config 1's mel (PERF.md section 6)
+# the earlier dB kernel (a logarithm per element in both passes, blocks in order) on config 1's
+# mel (PERF.md section 6)
+DB_EARLIER_MS = 0.0812
 
 
 def db_kernel_phase(torch, L, rng, device, mel) -> dict:
-    """Phase 4a: the dB kernel against its plain version in both designs, then timed. Its JSON
-    entry, less launches."""
+    """Phase 4a: the dB kernel against its plain version, then timed. Its JSON entry, less
+    launches."""
     from librosa_tpu_torch.core.spectrum import _db_axes
     from librosa_tpu_torch.ops import db_scale
 
     worst = 0.0
     cases = db_cases(torch, rng, device, mel)
-    designs = set()
     for label, fn, S, kw in cases:
         before = db_scale.launches
         poison(torch, tuple(S.shape), device)
@@ -497,8 +498,7 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
         full = dict(dict(ref=1.0, amin=1e-5 if fn == "amplitude_to_db" else 1e-10, top_db=80.0),
                     **kw)
         axes = _db_axes(S.ndim, full.pop("axes", "auto"))
-        design = db_scale.design(S, axes)
-        designs.add(design)
+        channels, n, parts = db_scale.launch_geometry(S, axes)
         want = db_scale.db_scale_reference(S, axes=axes, amplitude=fn == "amplitude_to_db",
                                            **full)
         torch.cuda.synchronize()
@@ -520,13 +520,11 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
                 raise AssertionError(f"dB {label}: the peak is not exactly 0 dB with ref=max: "
                                      f"{peak.flatten()[:4].tolist()}")
             note += ", peak exactly 0 dB"
-        print(f"dB kernel vs plain  {label} {tuple(S.shape)}: {design} design "
-              f"({1 if design == 'cluster' else 2} launch{'' if design == 'cluster' else 'es'} "
-              f"per call), max |err| {err:.3e} dB ({note})")
+        print(f"dB kernel vs plain  {label} {tuple(S.shape)}: {channels} channel(s) of {4 * n} "
+              f"bytes, {parts} part(s) each, 2 launches per call; max |err| {err:.3e} dB "
+              f"({note})")
         if not (equal and err <= DB_ATOL):
             raise AssertionError(f"dB kernel vs plain {label}: not bit-equal, {err:.3e} dB")
-    if designs != {"cluster", "two-pass"}:
-        raise AssertionError(f"the dB cases reached the designs {designs}, not both")
     print(f"dB kernel vs plain: {len(cases)} cases bit-equal (NaN where the torch ops have "
           "NaN), each on NaN-filled memory")
 
@@ -534,23 +532,18 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
     kw = dict(ref=1.0, amin=1e-10, top_db=80.0, axes=axes)
     ms = time_ms(torch, lambda: db_scale.db_scale(mel, **kw), 20)
     ms_max = time_ms(torch, lambda: db_scale.db_scale(mel, **dict(kw, ref=np.max)), 20)
-    by_design = {}
-    for label, cluster in (("cluster of 16", 16), ("cluster of 8", 8), ("two-pass", 0)):
-        by_design[label] = time_ms(torch, lambda: db_scale._launch(mel, amplitude=False,
-                                                                   cluster=cluster, **kw), 20)
     plain_ms = time_ms(torch, lambda: db_scale.db_scale_reference(mel, **kw), 5)
     channels, n, parts = db_scale.launch_geometry(mel, axes)
-    # the function reads its input once and writes its output once
+    # the function reads its input once and writes its output once; a kernel whose input
+    # exceeds the L2 cache must read it a second time after the peak is known
     bound_ms = 1e3 * 8 * mel.numel() / H100_HBM_BYTES_S
     two_pass_ms = 1e3 * 12 * mel.numel() / H100_HBM_BYTES_S
     print(f"db_scale launch geometry on {tuple(mel.shape)}, axes {axes}: {channels} channels of "
-          f"{n} elements ({4 * n} bytes), two-pass parts {parts}; design "
-          f"{db_scale.design(mel, axes)} (cluster of {db_scale.CLUSTER})")
-    print(f"db_scale kernel on {tuple(mel.shape)}: {ms:.4f} ms (ref max {ms_max:.4f} ms; PR 4's "
-          f"two-pass kernel {DB_PR4_MS} ms), plain torch ops {plain_ms:.4f} ms, bound "
+          f"{n} elements ({4 * n} bytes), {parts} parts each")
+    print(f"db_scale kernel on {tuple(mel.shape)}: {ms:.4f} ms (ref max {ms_max:.4f} ms; the earlier "
+          f"kernel {DB_EARLIER_MS} ms), plain torch ops {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms (bytes: {8 * mel.numel()} read and written once; {two_pass_ms:.4f} "
-          f"ms for the {12 * mel.numel()} bytes of two reads and a write); by design: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in by_design.items()))
+          f"ms for the {12 * mel.numel()} bytes of two reads and a write)")
     return {
         "name": "db_scale",
         "route": "cuda",
@@ -565,9 +558,7 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
         "two_pass_bound_ms": two_pass_ms,
-        "design": db_scale.design(mel, axes),
-        "ms_by_design": by_design,
-        "pr4_ms": DB_PR4_MS,
+        "earlier_ms": DB_EARLIER_MS,
     }
 
 
@@ -1175,8 +1166,8 @@ def tuning_phase(torch, L, device, y, win) -> dict:
 # 4f, 4g: the sliding median kernel, and config 4 (constant-Q transform and HPSS)
 # ---------------------------------------------------------------------------
 
-# PR 6's median kernel (one delete-and-insert pass per output), size 31 on config 4's |STFT|
-MEDIAN_PR6_MS = {"harmonic (time)": 2.4983, "percussive (frequency)": 2.8758}
+# the earlier median kernel (one delete-and-insert pass per output), size 31 on config 4's |STFT|
+MEDIAN_EARLIER_MS = {"harmonic (time)": 2.4983, "percussive (frequency)": 2.8758}
 
 
 def median_bit_equal(torch, got, want) -> bool:
@@ -1388,10 +1379,10 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
         bound_bytes = 2 * 4 * S.numel()
         bound_ms = 1e3 * bound_bytes / H100_HBM_BYTES_S
         entry[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, pr6_ms=MEDIAN_PR6_MS[name])
+                           bound_ms=bound_ms, earlier_ms=MEDIAN_EARLIER_MS[name])
         print(f"median_filter kernel, size 31 along the {name} axis of |STFT| {tuple(S.shape)} "
-              f"(strides {S.stride()}): {kernel_ms:.4f} ms (PR 6's kernel "
-              f"{MEDIAN_PR6_MS[name]} ms), plain (pad, unfold, torch.median; "
+              f"(strides {S.stride()}): {kernel_ms:.4f} ms (the earlier kernel "
+              f"{MEDIAN_EARLIER_MS[name]} ms), plain (pad, unfold, torch.median; "
               f"{MAIN_SHAPE[0]} tracks one by one) {plain_ms:.4f} ms, torch.median over the "
               f"unfolded padded view ({MAIN_SHAPE[0]} tracks) {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms (bytes: {bound_bytes} read and written once); bit-equal on "

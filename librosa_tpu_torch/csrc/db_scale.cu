@@ -1,4 +1,4 @@
-// Decibel scaling of a spectrogram: power_to_db and amplitude_to_db, in one launch or two.
+// Decibel scaling of a spectrogram in two launches: power_to_db and amplitude_to_db.
 //
 // The function: out = max(L - ref_db, (peak - ref_db) - top_db) with
 // L = 10 * log10(max(amin, S)) (S squared first for amplitudes), peak the
@@ -12,24 +12,16 @@
 // _power_to_db_core). The plain PyTorch version takes six elementwise and
 // reduction passes over the tensor.
 //
-// Bound on an H100: bytes, 8 per element (read once, written once), once the
-// logarithms are kept off the float32 pipe's critical path. Two designs, and
-// a predicate in ops/db_scale.py that chooses between them by the channel's
-// size:
+// Bound on an H100: bytes, 8 per element (read once, written once). The design
+// reads the input twice, so it arranges for the second read to find what it
+// can in L2 and keeps the logarithms off the first pass:
 //
-//   cluster   (channels of a few MB) one launch. A thread-block cluster owns
-//             a channel; each block reads its share once, keeps what fits of
-//             it in shared memory (up to 225 KB) and takes its maximum. The
-//             blocks exchange their maxima through distributed shared memory
-//             (cluster.sync, map_shared_rank), then each writes its share:
-//             the part that did not fit first, in reverse order, from the L2
-//             cache it was just read into, then the part in shared memory. A
-//             channel of config 1's mel (4.2 MB) is read from HBM once.
-//   two-pass  (larger channels, and small ones) two launches: db_peak writes
-//             each (channel, part)'s maximum, db_apply reduces its channel's
-//             partials and writes its part. db_apply walks the blocks in
-//             reverse order, so its first blocks read what db_peak read last,
-//             from L2.
+//   db_peak   each block takes the maximum of L over a contiguous part of one
+//             channel and writes it to partial[channel][part];
+//   db_apply  each block reduces its channel's partials (a few hundred floats
+//             from L2) to the peak, then writes its part of the output. The
+//             blocks run in reverse order, and each walks its part from the
+//             end, so the first of them read what db_peak read last.
 //
 // The peak takes a logarithm only where an element's power is within 2^-8 of
 // the largest power its warp has seen so far. Any other element's level lies
@@ -39,25 +31,24 @@
 // is found with a few logarithms per warp instead of one per element. A NaN
 // in a channel makes its peak NaN, as in the plain version.
 //
+// A one-launch design in which a thread-block cluster owns a channel (its
+// share kept in shared memory, the maxima exchanged through distributed
+// shared memory) measured slower on config 1's mel (PERF.md) and was dropped.
+//
 // There are no atomics and nothing to initialise, every reduction runs in a
 // fixed order (the result does not depend on the order blocks run in), and
 // nothing is copied to the host. Products and differences use __fmul_rn and
 // __fsub_rn: a fused multiply-add would subtract the peak from an unrounded
 // product and leave the peak element beside 0 instead of on it.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kThreads = 256;          // two-pass design
-constexpr int kClusterThreads = 1024;  // cluster design
-constexpr int kUnroll = 4;             // units each lane loads per step of the peak search
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;             // units a thread loads at a time
 constexpr float kNear = 0.99609375f;   // 1 - 2^-8: powers below kNear x the largest skip log10f
-constexpr long long kStashBytes = 225 * 1024;
 
 // max(a, b) where a NaN on either side wins
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -97,7 +88,6 @@ __device__ __forceinline__ void store(float* p, const float (&v)[VEC]) {
 }
 
 // The block's maximum, valid in every thread. scratch holds one float per warp.
-template <int THREADS>
 __device__ float block_max(float v, float* scratch) {
     for (int offset = 16; offset > 0; offset >>= 1)
         v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, offset));
@@ -106,18 +96,17 @@ __device__ float block_max(float v, float* scratch) {
     if (lane == 0) scratch[warp] = v;
     __syncthreads();
     v = scratch[0];
-    for (int w = 1; w < THREADS / 32; ++w) v = nan_max(v, scratch[w]);
+    for (int w = 1; w < kThreads / 32; ++w) v = nan_max(v, scratch[w]);
     return v;
 }
 
-// The maximum level over units [0, count) of src (VEC floats a unit), valid in every thread;
-// units below `keep` are copied to stash[unit] on the way. Warps step through the range in
-// lockstep, so a warp can share its largest power seen so far.
-template <int VEC, int THREADS>
+// The maximum level over units [0, count) of src (VEC floats a unit), valid in every thread.
+// Warps step through the range in lockstep, so a warp can share its largest power so far.
+template <int VEC>
 __device__ float block_peak(const float* __restrict__ src, long long count, float amin,
-                            bool square, float* stash, long long keep, float* scratch) {
+                            bool square, float* scratch) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    constexpr long long kStep = static_cast<long long>(THREADS) * kUnroll;
+    constexpr long long kStep = static_cast<long long>(kThreads) * kUnroll;
     float top = -INFINITY, best = -INFINITY;
     bool nan = false;
     for (long long u0 = static_cast<long long>(warp) * 32 * kUnroll; u0 < count; u0 += kStep) {
@@ -128,7 +117,6 @@ __device__ float block_peak(const float* __restrict__ src, long long count, floa
             const long long u = u0 + k * 32 + lane;
             if (u < count) {
                 load<VEC>(src + u * VEC, p[k]);
-                if (u < keep) store<VEC>(stash + u * VEC, p[k]);
 #pragma unroll
                 for (int e = 0; e < VEC; ++e) {
                     p[k][e] = power_of(p[k][e], amin, square);
@@ -150,7 +138,7 @@ __device__ float block_peak(const float* __restrict__ src, long long count, floa
             for (int e = 0; e < VEC; ++e)
                 if (p[k][e] >= near) best = fmaxf(best, level_of(p[k][e]));
     }
-    return block_max<THREADS>(nan ? __int_as_float(0x7FC00000) : best, scratch);
+    return block_max(nan ? __int_as_float(0x7FC00000) : best, scratch);
 }
 
 template <int VEC>
@@ -165,79 +153,22 @@ __device__ __forceinline__ void apply_unit(const float (&v)[VEC], float* dst, fl
 
 // Writes units [lo, hi) of dst from src, from the last unit down, kUnroll units a thread at a
 // time: their loads are all in flight before the first logarithm.
-template <int VEC, int THREADS>
+template <int VEC>
 __device__ __forceinline__ void apply_down(const float* __restrict__ src, float* __restrict__ dst,
                                            long long lo, long long hi, float amin, bool square,
                                            float ref_db, float floor_db) {
-    for (long long top = hi - 1 - threadIdx.x; top >= lo; top -= THREADS * kUnroll) {
+    for (long long top = hi - 1 - threadIdx.x; top >= lo; top -= kThreads * kUnroll) {
         float v[kUnroll][VEC];
 #pragma unroll
         for (int k = 0; k < kUnroll; ++k)
-            if (top - k * THREADS >= lo) load<VEC>(src + (top - k * THREADS) * VEC, v[k]);
+            if (top - k * kThreads >= lo) load<VEC>(src + (top - k * kThreads) * VEC, v[k]);
 #pragma unroll
         for (int k = 0; k < kUnroll; ++k)
-            if (top - k * THREADS >= lo)
-                apply_unit<VEC>(v[k], dst + (top - k * THREADS) * VEC, amin, square, ref_db,
+            if (top - k * kThreads >= lo)
+                apply_unit<VEC>(v[k], dst + (top - k * kThreads) * VEC, amin, square, ref_db,
                                 floor_db);
     }
 }
-
-__device__ __forceinline__ void references(float peak, int ref_is_max, float ref_abs, float amin,
-                                           bool square, int has_top, float top_db, float& ref_db,
-                                           float& floor_db) {
-    // a numeric reference goes through the same floor and the same log10f as the data
-    ref_db = ref_is_max ? peak : level_of(power_of(ref_abs, amin, square));
-    floor_db = has_top ? __fsub_rn(__fsub_rn(peak, ref_db), top_db) : -INFINITY;
-}
-
-// ---------------------------------------------------------------------------------------
-// cluster design: one cluster a channel, one launch
-
-template <int VEC>
-__global__ void __launch_bounds__(kClusterThreads, 1)
-db_cluster(const float* __restrict__ s, float* __restrict__ out, long long n, long long stash_units,
-           int square, float amin, int ref_is_max, float ref_abs, int has_top, float top_db) {
-    extern __shared__ float4 stash4[];
-    float* stash = reinterpret_cast<float*>(stash4);
-    __shared__ float scratch[kClusterThreads / 32];
-    __shared__ float partial;
-
-    cg::cluster_group cluster = cg::this_cluster();
-    const int rank = static_cast<int>(cluster.block_rank());
-    const int blocks = static_cast<int>(cluster.num_blocks());
-    const long long channel = blockIdx.x / blocks, units = n / VEC;
-    const long long first = units * rank / blocks, count = units * (rank + 1) / blocks - first;
-    const long long keep = min(count, stash_units);
-    const float* src = s + channel * n + first * VEC;
-    float* dst = out + channel * n + first * VEC;
-
-    const float mine = block_peak<VEC, kClusterThreads>(src, count, amin, square, stash, keep,
-                                                        scratch);
-    if (threadIdx.x == 0) partial = mine;
-    cluster.sync();  // every block's maximum is written (and the stash complete)
-    float peak = threadIdx.x < blocks ? *cluster.map_shared_rank(&partial, threadIdx.x)
-                                      : -INFINITY;
-    peak = block_max<kClusterThreads>(peak, scratch);
-    float ref_db, floor_db;
-    references(peak, ref_is_max, ref_abs, amin, square, has_top, top_db, ref_db, floor_db);
-
-    // the units that did not fit, latest read first (from L2), then the stash
-    apply_down<VEC, kClusterThreads>(src, dst, keep, count, amin, square, ref_db, floor_db);
-    for (long long u = threadIdx.x; u < keep; u += kClusterThreads) {
-        float v[VEC];
-        if constexpr (VEC == 4) {
-            const float4 t = stash4[u];
-            v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-        } else {
-            v[0] = stash[u];
-        }
-        apply_unit<VEC>(v, dst + u * VEC, amin, square, ref_db, floor_db);
-    }
-    cluster.sync();  // no block leaves while another may still read its maximum
-}
-
-// ---------------------------------------------------------------------------------------
-// two-pass design: parts of a channel, two launches
 
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -248,8 +179,8 @@ db_peak(const float* __restrict__ s, float* __restrict__ partial, long long n, i
     const int part = blockIdx.x % parts;
     const long long units = n / VEC, first = units * part / parts;
     const long long count = units * (part + 1) / parts - first;
-    const float best = block_peak<VEC, kThreads>(s + channel * n + first * VEC, count, amin,
-                                                 square, nullptr, 0, scratch);
+    const float best = block_peak<VEC>(s + channel * n + first * VEC, count, amin, square,
+                                       scratch);
     if (threadIdx.x == 0) partial[channel * parts + part] = best;
 }
 
@@ -267,71 +198,30 @@ db_apply(const float* __restrict__ s, float* __restrict__ out,
     float peak = -INFINITY;
     for (int p = threadIdx.x; p < parts; p += kThreads)
         peak = nan_max(peak, partial[channel * parts + p]);
-    peak = block_max<kThreads>(peak, scratch);
-    float ref_db, floor_db;
-    references(peak, ref_is_max, ref_abs, amin, square, has_top, top_db, ref_db, floor_db);
+    peak = block_max(peak, scratch);
+    // a numeric reference goes through the same floor and the same log10f as the data
+    const float ref_db = ref_is_max ? peak : level_of(power_of(ref_abs, amin, square));
+    const float floor_db = has_top ? __fsub_rn(__fsub_rn(peak, ref_db), top_db) : -INFINITY;
 
     const long long units = n / VEC, first = units * part / parts;
     const long long count = units * (part + 1) / parts - first;
-    apply_down<VEC, kThreads>(s + channel * n + first * VEC, out + channel * n + first * VEC, 0,
-                              count, amin, square, ref_db, floor_db);
-}
-
-template <int VEC>
-int launch_cluster(const float* s, float* out, long long channels, long long n, int cluster,
-                   int square, float amin, int ref_is_max, float ref_abs, int has_top,
-                   float top_db, cudaStream_t stream) {
-    const long long share = (n / VEC + cluster - 1) / cluster;  // units of the largest share
-    const long long stash_units = min(share, kStashBytes / (4 * VEC));
-    const int smem = static_cast<int>(stash_units * 4 * VEC);
-    cudaError_t err = cudaFuncSetAttribute(db_cluster<VEC>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess && cluster > 8)
-        err = cudaFuncSetAttribute(db_cluster<VEC>,
-                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(channels * cluster));
-    cfg.blockDim = dim3(kClusterThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, db_cluster<VEC>, s, out, n, stash_units, square, amin,
-                             ref_is_max, ref_abs, has_top, top_db);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    apply_down<VEC>(s + channel * n + first * VEC, out + channel * n + first * VEC, 0, count,
+                    amin, square, ref_db, floor_db);
 }
 
 }  // namespace
 
-// One call on `stream`. cluster > 0: the cluster design with `cluster` blocks a channel (one
-// launch); cluster == 0: the two-pass design with `parts` blocks a channel (two launches),
-// `partial` scratch of channels * parts floats. The 16-byte path is taken where every channel
-// starts on a 16-byte boundary. Returns 0, 1 for arguments the kernel does not take, or the
-// CUDA error of the launch that was refused.
+// Both launches on `stream`. `partial` is scratch of channels * parts floats. The 16-byte path is
+// taken where N % 4 == 0 and both pointers lie on a 16-byte boundary. Returns 0, 1 for
+// arguments the kernel does not take, or the CUDA error of the launch that was refused.
 extern "C" int db_scale_launch(const float* s, float* out, float* partial, long long channels,
-                               long long n, int parts, int cluster, int square, float amin,
-                               int ref_is_max, float ref_abs, int has_top, float top_db,
-                               void* stream_ptr) {
+                               long long n, int parts, int square, float amin, int ref_is_max,
+                               float ref_abs, int has_top, float top_db, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    if (channels <= 0 || n <= 0 || cluster < 0 || cluster > 16) return 1;
+    if (channels <= 0 || n <= 0 || parts <= 0 || channels * parts > 2147483647LL) return 1;
+    const unsigned blocks = static_cast<unsigned>(channels * parts);
     const bool vec = n % 4 == 0 && reinterpret_cast<size_t>(s) % 16 == 0 &&
                      reinterpret_cast<size_t>(out) % 16 == 0;
-    if (cluster > 0) {
-        if (channels * cluster > 2147483647LL) return 1;
-        return vec ? launch_cluster<4>(s, out, channels, n, cluster, square, amin, ref_is_max,
-                                       ref_abs, has_top, top_db, stream)
-                   : launch_cluster<1>(s, out, channels, n, cluster, square, amin, ref_is_max,
-                                       ref_abs, has_top, top_db, stream);
-    }
-    if (parts <= 0 || channels * parts > 2147483647LL) return 1;
-    const unsigned blocks = static_cast<unsigned>(channels * parts);
     if (vec)
         db_peak<4><<<blocks, kThreads, 0, stream>>>(s, partial, n, parts, square, amin);
     else

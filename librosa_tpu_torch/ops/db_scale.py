@@ -7,14 +7,11 @@ that peak (``ref=np.max``: the peak is exactly 0 dB) or the level of a
 reference value.
 
 :func:`db_scale` on a CUDA tensor launches the hand-written kernel
-``csrc/db_scale.cu`` (built for ``sm_90a`` at first use by
-``ops/_build.py``) in one of two designs that :func:`design` picks by the
-channel's size: one launch in which a cluster of blocks owns a channel
-and keeps it in shared memory and L2 between the peak and the output, or
-two launches (each part's peak, then the output, in reverse order) for a
-channel larger than that or too small to share. It raises where the
-kernel does not take the call; on a CPU tensor it runs :func:`db_scale_reference`, the plain
-PyTorch version of the same function. The kernel takes what
+``csrc/db_scale.cu`` (two launches: each part of a channel's peak, then
+the output, its blocks in reverse order so that they find in L2 what the
+first launch read last; built for ``sm_90a`` at first use by
+``ops/_build.py``) or raises; on a CPU tensor it runs
+:func:`db_scale_reference`, the plain PyTorch version of the same function. The kernel takes what
 :func:`kernel_refusal` does not refuse: contiguous float32 input reduced
 over a trailing block of axes (each channel's last two for
 ``axes='auto'``) or over the whole array, and a ``ref`` that is a number
@@ -40,19 +37,12 @@ from ..util.exceptions import ParameterError
 from ..util.utils import _device_reduction
 from . import _build
 
-__all__ = ["db_scale", "db_scale_reference", "kernel_refusal", "design", "MAX_REFS", "launches"]
+__all__ = ["db_scale", "db_scale_reference", "kernel_refusal", "MAX_REFS", "launches"]
 
 #: Kernel launches so far: :func:`db_scale` adds one per call that reaches
-#: the card (the two launches of the two-pass design count as one). Callers
+#: the card (the peak pass and the elementwise pass count as one). Callers
 #: may reset it to 0.
 launches = 0
-
-#: Blocks of a cluster in the cluster design (16 needs the card's non-portable cluster size).
-CLUSTER = 16
-#: Channel sizes in bytes that the cluster design takes: from the size at which a
-#: cluster's blocks each get a useful share to the size at which the part that does not
-#: fit the cluster's shared memory no longer stays in L2 between the two reads.
-CLUSTER_BYTES = (1 << 20, 24 << 20)
 
 #: References that mean "the maximum over the reduction axes".
 MAX_REFS = (np.max, np.amax, torch.max, torch.amax)
@@ -152,43 +142,32 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.db_scale_launch
     if fn.argtypes is None:
         p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, i64, i64, i32, i32, i32, f32, i32, f32, i32, f32, p]
+        fn.argtypes = [p, p, p, i64, i64, i32, i32, f32, i32, f32, i32, f32, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def launch_geometry(S: torch.Tensor, axes: Any) -> Tuple[int, int, int]:
-    """``(channels, elements per channel, parts per channel)`` of the two-pass design's grid for ``S``."""
+    """``(channels, elements per channel, parts per channel)`` of the kernel's grid for ``S``."""
     n = int(np.prod(S.shape[S.ndim - _trailing(S.ndim, axes):], dtype=np.int64))
     channels = S.numel() // n
     parts = max(1, min(_MAX_PARTS, -(-n // _PART_ELEMENTS)))
     return channels, n, parts
 
 
-def design(S: torch.Tensor, axes: Any) -> str:
-    """``'cluster'`` or ``'two-pass'``: the kernel's design for ``S`` reduced over ``axes``.
-
-    The cluster design takes a channel of :data:`CLUSTER_BYTES`; the
-    two-pass design every other size.
-    """
-    _, n, _ = launch_geometry(S, axes)
-    low, high = CLUSTER_BYTES
-    return "cluster" if low <= 4 * n <= high else "two-pass"
-
-
 def db_scale(S: torch.Tensor, *, ref: Any = 1.0, amin: float = 1e-10,
              top_db: Optional[float] = 80.0, axes: Any = None,
              amplitude: bool = False) -> torch.Tensor:
-    """``S`` in decibels, same shape: one call of the kernel on the card.
+    """``S`` in decibels, same shape, in two kernel launches on the card.
 
     ``axes`` is None (one peak for the whole array) or a tuple of trailing
     axes (one peak per channel in front of them). On a CUDA tensor this
-    launches the kernel, in the design :func:`design` picks, where
-    :func:`kernel_refusal` gives no reason, and raises with that reason
-    otherwise; a failed build or launch raises too. On a CPU tensor it
-    returns :func:`db_scale_reference`. Nothing is copied to the host and
-    nothing synchronises.
+    launches the kernel where :func:`kernel_refusal` gives no reason, and
+    raises with that reason otherwise; a failed build or launch raises too.
+    On a CPU tensor it returns :func:`db_scale_reference`. Nothing is copied
+    to the host and nothing synchronises.
     """
+    global launches
     if S.device.type == "cpu":
         return db_scale_reference(S, ref=ref, amin=amin, top_db=top_db, axes=axes,
                                   amplitude=amplitude)
@@ -197,25 +176,15 @@ def db_scale(S: torch.Tensor, *, ref: Any = 1.0, amin: float = 1e-10,
     refusal = kernel_refusal(S, ref, axes)
     if refusal is not None:
         raise ParameterError(refusal)
-    return _launch(S, ref=ref, amin=amin, top_db=top_db, axes=axes, amplitude=amplitude,
-                   cluster=CLUSTER if design(S, axes) == "cluster" else 0)
-
-
-def _launch(S: torch.Tensor, *, ref: Any, amin: float, top_db: Optional[float], axes: Any,
-            amplitude: bool, cluster: int) -> torch.Tensor:
-    """One call of the kernel on a call :func:`kernel_refusal` takes: the cluster design with
-    ``cluster`` blocks a channel, or the two-pass design where ``cluster`` is 0."""
-    global launches
     channels, n, parts = launch_geometry(S, axes)
     max_ref = is_max_ref(ref)
     out = torch.empty_like(S)
-    partial = torch.empty(0 if cluster else channels * parts, dtype=torch.float32,
-                          device=S.device)
+    partial = torch.empty(channels * parts, dtype=torch.float32, device=S.device)
     lib = _kernel_lib()
     with torch.cuda.device(S.device):
         stream = torch.cuda.current_stream(S.device).cuda_stream
         err = lib.db_scale_launch(
-            S.data_ptr(), out.data_ptr(), partial.data_ptr(), channels, n, parts, int(cluster),
+            S.data_ptr(), out.data_ptr(), partial.data_ptr(), channels, n, parts,
             int(amplitude), float(amin) ** 2 if amplitude else float(amin), int(max_ref),
             0.0 if max_ref else abs(float(ref)), int(top_db is not None),
             0.0 if top_db is None else float(top_db), stream,

@@ -91,17 +91,6 @@ def test_numpy_reductions_as_ref_run_on_the_device_and_match_jax(monkeypatch, am
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL_DB)
 
 
-def test_design_follows_the_channel_size():
-    lo, hi = db_scale.CLUSTER_BYTES
-    assert db_scale.design(torch.zeros(1).expand(16, 128, 8193), (-2, -1)) == "cluster"
-    assert db_scale.design(torch.zeros(1).expand(16, 128, 8193), None) == "two-pass"
-    assert db_scale.design(torch.zeros(1).expand(4, lo // 4), (-1,)) == "cluster"
-    assert db_scale.design(torch.zeros(1).expand(4, lo // 4 - 1), (-1,)) == "two-pass"
-    assert db_scale.design(torch.zeros(1).expand(2, hi // 4), (-1,)) == "cluster"
-    assert db_scale.design(torch.zeros(1).expand(2, hi // 4 + 1), (-1,)) == "two-pass"
-    assert db_scale.design(torch.zeros(2048, 33), (-1,)) == "two-pass"
-
-
 F32 = torch.zeros(2, 8, 6)
 
 

@@ -3,7 +3,7 @@
 ``librosa_tpu_torch/csrc/median_select.cuh`` is the code each thread of
 ``csrc/median_filter.cu`` runs: order keys, mirrored indices and the grouped
 selection (a sorted core shared by adjacent outputs, then halving merges).
-Here ``g++`` builds it into a small library whose driver stages each row as
+Here ``g++`` builds it into a small library whose harness stages each row as
 the kernel stages a tile (keys of the mirrored indices) and runs it in the
 kernel's runs of 32 outputs. Its output must equal
 ``ops/median.py:median_filter_reference`` bit for bit (NaN where that has
@@ -23,7 +23,7 @@ import torch
 
 from librosa_tpu_torch.ops import _build, median
 
-DRIVER = r"""
+HARNESS = r"""
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
@@ -73,8 +73,8 @@ def lib(tmp_path_factory):
     if gxx is None:
         pytest.skip("g++ is not installed")
     tmp = tmp_path_factory.mktemp("median_select")
-    src = tmp / "driver.cpp"
-    src.write_text(DRIVER)
+    src = tmp / "harness.cpp"
+    src.write_text(HARNESS)
     so = tmp / "libmedian_select.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
                     f"-I{_build.CSRC}", "-o", str(so), str(src)], check=True,
