@@ -476,9 +476,10 @@ def db_cases(torch, rng, device, mel):
     ]
 
 
-# the earlier dB kernel (a logarithm per element in both passes, blocks in order) on config 1's
-# mel (PERF.md section 6)
+# constants quoted beside this run's times, not measured by it: the dB kernel's time on config
+# 1's mel and the median kernel's of PR 6 at size 31 on config 4's |STFT| (PERF.md section 6)
 DB_EARLIER_MS = 0.0812
+MEDIAN_EARLIER_MS = {"harmonic (time)": 2.4983, "percussive (frequency)": 2.8758}
 
 
 def db_kernel_phase(torch, L, rng, device, mel) -> dict:
@@ -521,7 +522,8 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
                                      f"{peak.flatten()[:4].tolist()}")
             note += ", peak exactly 0 dB"
         print(f"dB kernel vs plain  {label} {tuple(S.shape)}: {channels} channel(s) of {4 * n} "
-              f"bytes, {parts} part(s) each, 2 launches per call; max |err| {err:.3e} dB "
+              f"bytes, {parts} part(s) each; design two-pass (db_peak, db_apply), 2 launches per "
+              f"call; max |err| {err:.3e} dB "
               f"({note})")
         if not (equal and err <= DB_ATOL):
             raise AssertionError(f"dB kernel vs plain {label}: not bit-equal, {err:.3e} dB")
@@ -540,10 +542,11 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
     two_pass_ms = 1e3 * 12 * mel.numel() / H100_HBM_BYTES_S
     print(f"db_scale launch geometry on {tuple(mel.shape)}, axes {axes}: {channels} channels of "
           f"{n} elements ({4 * n} bytes), {parts} parts each")
-    print(f"db_scale kernel on {tuple(mel.shape)}: {ms:.4f} ms (ref max {ms_max:.4f} ms; the earlier "
-          f"kernel {DB_EARLIER_MS} ms), plain torch ops {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms (bytes: {8 * mel.numel()} read and written once; {two_pass_ms:.4f} "
-          f"ms for the {12 * mel.numel()} bytes of two reads and a write)")
+    print(f"db_scale kernel on {tuple(mel.shape)}: {ms:.4f} ms (ref max {ms_max:.4f} ms; "
+          f"PR 4's run {DB_EARLIER_MS} ms in PERF.md, a constant), plain torch ops "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {8 * mel.numel()} read and "
+          f"written once; {two_pass_ms:.4f} ms for the {12 * mel.numel()} bytes of two reads "
+          f"and a write)")
     return {
         "name": "db_scale",
         "route": "cuda",
@@ -558,7 +561,6 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
         "two_pass_bound_ms": two_pass_ms,
-        "earlier_ms": DB_EARLIER_MS,
     }
 
 
@@ -1166,8 +1168,10 @@ def tuning_phase(torch, L, device, y, win) -> dict:
 # 4f, 4g: the sliding median kernel, and config 4 (constant-Q transform and HPSS)
 # ---------------------------------------------------------------------------
 
-# the earlier median kernel (one delete-and-insert pass per output), size 31 on config 4's |STFT|
-MEDIAN_EARLIER_MS = {"harmonic (time)": 2.4983, "percussive (frequency)": 2.8758}
+# outputs that share one sorted core in csrc/median_select.cuh:group_size, for the sizes of
+# median_cases' axis lengths around the group
+MEDIAN_GROUP = {2: 1, 3: 1, 5: 4, 8: 4, 9: 4, 16: 8, 17: 8, 31: 16, 32: 16, 33: 16, 48: 16,
+                63: 32, 64: 32}
 
 
 def median_bit_equal(torch, got, want) -> bool:
@@ -1200,8 +1204,6 @@ def median_cases(torch, rng, device):
                               axis))
     # axis lengths around the window, the kernel's group of outputs and its run of 32 (those of
     # tests/test_torch_median_select.py), both axes, and the main path's 1025 and 8193 on a row
-    from librosa_tpu_torch.ops import median
-
     def hard(*shape):
         x = rng.randn(*shape).astype(np.float32)
         flat = x.reshape(-1)
@@ -1211,8 +1213,7 @@ def median_cases(torch, rng, device):
         flat[2::19] = np.inf
         return torch.from_numpy(x).to(device)
 
-    for size in (2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 48, 63, 64):
-        k = median.group_size(size)
+    for size, k in MEDIAN_GROUP.items():
         for n in sorted({n for n in (1, 2, size - 1, size, size + 1, k - 1, k, k + 1, 31, 32, 33)
                          if n >= 1}):
             cases.append((f"size {size} (group {k}), {n} along axis -1", hard(3, n), size, -1))
@@ -1379,15 +1380,14 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
         bound_bytes = 2 * 4 * S.numel()
         bound_ms = 1e3 * bound_bytes / H100_HBM_BYTES_S
         entry[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, earlier_ms=MEDIAN_EARLIER_MS[name])
+                           bound_ms=bound_ms)
         print(f"median_filter kernel, size 31 along the {name} axis of |STFT| {tuple(S.shape)} "
-              f"(strides {S.stride()}): {kernel_ms:.4f} ms (the earlier kernel "
-              f"{MEDIAN_EARLIER_MS[name]} ms), plain (pad, unfold, torch.median; "
-              f"{MAIN_SHAPE[0]} tracks one by one) {plain_ms:.4f} ms, torch.median over the "
-              f"unfolded padded view ({MAIN_SHAPE[0]} tracks) {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms (bytes: {bound_bytes} read and written once); bit-equal on "
-              f"all {MAIN_SHAPE[0]} tracks; {median.selection_ops(31)} minimum/maximum "
-              f"operations per output (ops/median.py:selection_ops)")
+              f"(strides {S.stride()}): {kernel_ms:.4f} ms (PR 6's kernel "
+              f"{MEDIAN_EARLIER_MS[name]} ms in PERF.md, a constant), plain (pad, unfold, "
+              f"torch.median; {MAIN_SHAPE[0]} tracks one by one) {plain_ms:.4f} ms, "
+              f"torch.median over the unfolded padded view ({MAIN_SHAPE[0]} tracks) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {bound_bytes} read and "
+              f"written once); bit-equal on all {MAIN_SHAPE[0]} tracks")
 
     # the parts of the path alone
     D = L.stft(y, n_fft=n_fft, hop_length=hop)
@@ -1487,7 +1487,6 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
         "bound_by": "bytes",
         "library_ms": harm_entry["library_ms"],
         "by_axis": entry,
-        "selection_ops_per_output": median.selection_ops(31),
     }
     return {"launches": counts, "median_filter": median_entry, "pseudo_cqt_basis": k1,
             "e2e_ms": e2e_ms}

@@ -10,36 +10,26 @@
 // It replaces no TPU kernel: the JAX package runs this step as compiled XLA
 // programs (librosa_tpu/core/spectrum.py, _db_log_core, _db_maxref_core,
 // _power_to_db_core). The plain PyTorch version takes six elementwise and
-// reduction passes over the tensor.
+// reduction passes over the tensor; this one reads it twice and writes it once.
 //
-// Bound on an H100: bytes, 8 per element (read once, written once). The design
-// reads the input twice, so it arranges for the second read to find what it
-// can in L2 and keeps the logarithms off the first pass:
+// Bound on an H100: bytes. 12 bytes per element against some 30 instructions
+// for a log10f, and the card offers about 20 float32 operations per byte. So
+// the design only arranges for the fewest passes with every access a whole
+// 16-byte load or store of neighbouring threads:
 //
-//   db_peak   each block takes the maximum of L over a contiguous part of one
+//   db_peak   each block takes the maximum of L over a strided part of one
 //             channel and writes it to partial[channel][part];
-//   db_apply  each block reduces its channel's partials (a few hundred floats
-//             from L2) to the peak, then writes its part of the output. The
-//             blocks run in reverse order, and each walks its part from the
-//             end, so the first of them read what db_peak read last.
+//   db_apply  each block first reduces its channel's partials (a few hundred
+//             floats from L2) to the peak, then writes its part of the output.
 //
-// The peak takes a logarithm only where an element's power is within 2^-8 of
-// the largest power its warp has seen so far. Any other element's level lies
-// at least 0.017 dB below that of the largest, far beyond log10f's error, so
-// the maximum of the logarithms (not the logarithm of the maximum: it is one
-// of the values L takes, whether or not log10f is monotone in its last bit)
-// is found with a few logarithms per warp instead of one per element. A NaN
-// in a channel makes its peak NaN, as in the plain version.
-//
-// A one-launch design in which a thread-block cluster owns a channel (its
-// share kept in shared memory, the maxima exchanged through distributed
-// shared memory) measured slower on config 1's mel (PERF.md) and was dropped.
-//
-// There are no atomics and nothing to initialise, every reduction runs in a
-// fixed order (the result does not depend on the order blocks run in), and
-// nothing is copied to the host. Products and differences use __fmul_rn and
+// There are no atomics and nothing to initialise, the result does not depend
+// on the order blocks run in, and nothing is copied to the host. The peak is
+// the maximum of the logarithms themselves, not the logarithm of the
+// maximum, so it is one of the values L takes whether or not log10f is
+// monotone in its last bit. Products and differences use __fmul_rn and
 // __fsub_rn: a fused multiply-add would subtract the peak from an unrounded
-// product and leave the peak element beside 0 instead of on it.
+// product and leave the peak element beside 0 instead of on it. NaN
+// propagates as in the plain version: a NaN in a channel makes its peak NaN.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,47 +37,20 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;             // units a thread loads at a time
-constexpr float kNear = 0.99609375f;   // 1 - 2^-8: powers below kNear x the largest skip log10f
+constexpr int kWarps = kThreads / 32;
 
 // max(a, b) where a NaN on either side wins
 __device__ __forceinline__ float nan_max(float a, float b) {
     return (a != a || a > b) ? a : b;
 }
 
-__device__ __forceinline__ float power_of(float s, float amin, bool square) {
+__device__ __forceinline__ float level_db(float s, float amin, bool square) {
     if (square) s = __fmul_rn(s, s);
-    return s < amin ? amin : s;  // NaN stays
+    if (s < amin) s = amin;  // NaN stays
+    return __fmul_rn(10.0f, log10f(s));
 }
 
-__device__ __forceinline__ float level_of(float p) { return __fmul_rn(10.0f, log10f(p)); }
-
-__device__ __forceinline__ float clamp_db(float level, float ref_db, float floor_db) {
-    float v = __fsub_rn(level, ref_db);
-    if (!(v >= floor_db)) v = (v != v) ? v : floor_db;  // NaN in v or in the floor stays NaN
-    return v;
-}
-
-// VEC floats at p: a 16-byte load where VEC is 4
-template <int VEC>
-__device__ __forceinline__ void load(const float* p, float (&v)[VEC]) {
-    if constexpr (VEC == 4) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-        v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-    } else {
-        v[0] = __ldg(p);
-    }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store(float* p, const float (&v)[VEC]) {
-    if constexpr (VEC == 4)
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    else
-        p[0] = v[0];
-}
-
-// The block's maximum, valid in every thread. scratch holds one float per warp.
+// The block's maximum, valid in every thread. scratch holds kWarps floats.
 __device__ float block_max(float v, float* scratch) {
     for (int offset = 16; offset > 0; offset >>= 1)
         v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, offset));
@@ -96,92 +59,40 @@ __device__ float block_max(float v, float* scratch) {
     if (lane == 0) scratch[warp] = v;
     __syncthreads();
     v = scratch[0];
-    for (int w = 1; w < kThreads / 32; ++w) v = nan_max(v, scratch[w]);
+    for (int w = 1; w < kWarps; ++w) v = nan_max(v, scratch[w]);
     return v;
 }
 
-// The maximum level over units [0, count) of src (VEC floats a unit), valid in every thread.
-// Warps step through the range in lockstep, so a warp can share its largest power so far.
-template <int VEC>
-__device__ float block_peak(const float* __restrict__ src, long long count, float amin,
-                            bool square, float* scratch) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    constexpr long long kStep = static_cast<long long>(kThreads) * kUnroll;
-    float top = -INFINITY, best = -INFINITY;
-    bool nan = false;
-    for (long long u0 = static_cast<long long>(warp) * 32 * kUnroll; u0 < count; u0 += kStep) {
-        float p[kUnroll][VEC];
-        float local = -INFINITY;
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k) {
-            const long long u = u0 + k * 32 + lane;
-            if (u < count) {
-                load<VEC>(src + u * VEC, p[k]);
-#pragma unroll
-                for (int e = 0; e < VEC; ++e) {
-                    p[k][e] = power_of(p[k][e], amin, square);
-                    nan |= p[k][e] != p[k][e];
-                    local = fmaxf(local, p[k][e]);
-                }
-            } else {
-#pragma unroll
-                for (int e = 0; e < VEC; ++e) p[k][e] = -INFINITY;
-            }
-        }
-        for (int offset = 16; offset > 0; offset >>= 1)
-            local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, offset));
-        top = fmaxf(top, local);
-        const float near = top * kNear;
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k)
-#pragma unroll
-            for (int e = 0; e < VEC; ++e)
-                if (p[k][e] >= near) best = fmaxf(best, level_of(p[k][e]));
-    }
-    return block_max(nan ? __int_as_float(0x7FC00000) : best, scratch);
-}
-
-template <int VEC>
-__device__ __forceinline__ void apply_unit(const float (&v)[VEC], float* dst, float amin,
-                                           bool square, float ref_db, float floor_db) {
-    float r[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) r[e] = clamp_db(level_of(power_of(v[e], amin, square)), ref_db,
-                                                  floor_db);
-    store<VEC>(dst, r);
-}
-
-// Writes units [lo, hi) of dst from src, from the last unit down, kUnroll units a thread at a
-// time: their loads are all in flight before the first logarithm.
-template <int VEC>
-__device__ __forceinline__ void apply_down(const float* __restrict__ src, float* __restrict__ dst,
-                                           long long lo, long long hi, float amin, bool square,
-                                           float ref_db, float floor_db) {
-    for (long long top = hi - 1 - threadIdx.x; top >= lo; top -= kThreads * kUnroll) {
-        float v[kUnroll][VEC];
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k)
-            if (top - k * kThreads >= lo) load<VEC>(src + (top - k * kThreads) * VEC, v[k]);
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k)
-            if (top - k * kThreads >= lo)
-                apply_unit<VEC>(v[k], dst + (top - k * kThreads) * VEC, amin, square, ref_db,
-                                floor_db);
-    }
-}
-
+// VEC is 4 where every channel starts on a 16-byte boundary and N % 4 == 0, else 1.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 db_peak(const float* __restrict__ s, float* __restrict__ partial, long long n, int parts,
         int square, float amin) {
-    __shared__ float scratch[kThreads / 32];
+    __shared__ float scratch[kWarps];
     const long long channel = blockIdx.x / parts;
     const int part = blockIdx.x % parts;
-    const long long units = n / VEC, first = units * part / parts;
-    const long long count = units * (part + 1) / parts - first;
-    const float best = block_peak<VEC>(s + channel * n + first * VEC, count, amin, square,
-                                       scratch);
+    const float* src = s + channel * n;
+    const long long stride = (long long)parts * kThreads * VEC;
+    float best = -INFINITY;
+    for (long long i = ((long long)part * kThreads + threadIdx.x) * VEC; i < n; i += stride) {
+        if (VEC == 4) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(src + i));
+            best = nan_max(best, level_db(v.x, amin, square));
+            best = nan_max(best, level_db(v.y, amin, square));
+            best = nan_max(best, level_db(v.z, amin, square));
+            best = nan_max(best, level_db(v.w, amin, square));
+        } else {
+            best = nan_max(best, level_db(__ldg(src + i), amin, square));
+        }
+    }
+    best = block_max(best, scratch);
     if (threadIdx.x == 0) partial[channel * parts + part] = best;
+}
+
+__device__ __forceinline__ float clamp_db(float level, float ref_db, float floor_db) {
+    float v = __fsub_rn(level, ref_db);
+    if (!(v >= floor_db)) v = (v != v) ? v : floor_db;  // NaN in v or in the floor stays NaN
+    return v;
 }
 
 template <int VEC>
@@ -189,31 +100,40 @@ __global__ void __launch_bounds__(kThreads)
 db_apply(const float* __restrict__ s, float* __restrict__ out,
          const float* __restrict__ partial, long long n, int parts, int square, float amin,
          int ref_is_max, float ref_abs, int has_top, float top_db) {
-    __shared__ float scratch[kThreads / 32];
-    // blocks in reverse: the first to run take the parts db_peak read last
-    const long long block = static_cast<long long>(gridDim.x) - 1 - blockIdx.x;
-    const long long channel = block / parts;
-    const int part = static_cast<int>(block % parts);
+    __shared__ float scratch[kWarps];
+    const long long channel = blockIdx.x / parts;
+    const int part = blockIdx.x % parts;
 
     float peak = -INFINITY;
     for (int p = threadIdx.x; p < parts; p += kThreads)
         peak = nan_max(peak, partial[channel * parts + p]);
     peak = block_max(peak, scratch);
     // a numeric reference goes through the same floor and the same log10f as the data
-    const float ref_db = ref_is_max ? peak : level_of(power_of(ref_abs, amin, square));
+    const float ref_db = ref_is_max ? peak : level_db(ref_abs, amin, square);
     const float floor_db = has_top ? __fsub_rn(__fsub_rn(peak, ref_db), top_db) : -INFINITY;
 
-    const long long units = n / VEC, first = units * part / parts;
-    const long long count = units * (part + 1) / parts - first;
-    apply_down<VEC>(s + channel * n + first * VEC, out + channel * n + first * VEC, 0, count,
-                    amin, square, ref_db, floor_db);
+    const float* src = s + channel * n;
+    float* dst = out + channel * n;
+    const long long stride = (long long)parts * kThreads * VEC;
+    for (long long i = ((long long)part * kThreads + threadIdx.x) * VEC; i < n; i += stride) {
+        if (VEC == 4) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(src + i));
+            float4 r;
+            r.x = clamp_db(level_db(v.x, amin, square), ref_db, floor_db);
+            r.y = clamp_db(level_db(v.y, amin, square), ref_db, floor_db);
+            r.z = clamp_db(level_db(v.z, amin, square), ref_db, floor_db);
+            r.w = clamp_db(level_db(v.w, amin, square), ref_db, floor_db);
+            *reinterpret_cast<float4*>(dst + i) = r;
+        } else {
+            dst[i] = clamp_db(level_db(__ldg(src + i), amin, square), ref_db, floor_db);
+        }
+    }
 }
 
 }  // namespace
 
-// Both launches on `stream`. `partial` is scratch of channels * parts floats. The 16-byte path is
-// taken where N % 4 == 0 and both pointers lie on a 16-byte boundary. Returns 0, 1 for
-// arguments the kernel does not take, or the CUDA error of the launch that was refused.
+// Both launches on `stream`. `partial` is scratch of channels * parts floats.
+// Returns 0 or the CUDA error of the launch that was refused.
 extern "C" int db_scale_launch(const float* s, float* out, float* partial, long long channels,
                                long long n, int parts, int square, float amin, int ref_is_max,
                                float ref_abs, int has_top, float top_db, void* stream_ptr) {

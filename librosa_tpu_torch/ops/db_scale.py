@@ -7,11 +7,10 @@ that peak (``ref=np.max``: the peak is exactly 0 dB) or the level of a
 reference value.
 
 :func:`db_scale` on a CUDA tensor launches the hand-written kernel
-``csrc/db_scale.cu`` (two launches: each part of a channel's peak, then
-the output, its blocks in reverse order so that they find in L2 what the
-first launch read last; built for ``sm_90a`` at first use by
-``ops/_build.py``) or raises; on a CPU tensor it runs
-:func:`db_scale_reference`, the plain PyTorch version of the same function. The kernel takes what
+``csrc/db_scale.cu`` (two launches: each channel's peak, then one
+elementwise pass; built for ``sm_90a`` at first use by ``ops/_build.py``)
+or raises; on a CPU tensor it runs :func:`db_scale_reference`, the plain
+PyTorch version of the same function. The kernel takes what
 :func:`kernel_refusal` does not refuse: contiguous float32 input reduced
 over a trailing block of axes (each channel's last two for
 ``axes='auto'``) or over the whole array, and a ``ref`` that is a number

@@ -14,8 +14,10 @@ The file skips only where ``g++`` is absent.
 """
 
 import ctypes
+import importlib.util
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -65,6 +67,104 @@ extern "C" int group_size_of(int size) { return median::group_size(median::windo
 """
 
 RUN = 32
+ROOT = Path(__file__).resolve().parents[1]
+
+
+# A model of the header's network structure in Python, for counting its operations;
+# test_group_sizes_divide_the_run holds group_size against the compiled header.
+def window_width(size: int) -> int:
+    """The kernel's completed window for ``size``: ``size`` rounded up to a multiple of 4."""
+    return 4 if size <= 4 else (size + 3) & ~3
+
+
+def group_size(size: int) -> int:
+    """Outputs that share one sorted core in the kernel (``median_select.cuh:group_size``)."""
+    w = window_width(size)
+    return 1 if w <= 4 else 4 if w <= 12 else 8 if w <= 28 else 16 if w <= 60 else 32
+
+
+def _batcher(n: int):
+    """Batcher's odd-even merge sort of ``n`` (a power of two) keys as (i, j) exchanges."""
+    def merge(lo, hi, r):
+        step = 2 * r
+        if step < hi - lo:
+            yield from merge(lo, hi, step)
+            yield from merge(lo + r, hi, step)
+            yield from ((i, i + r) for i in range(lo + r, hi - r, step))
+        else:
+            yield lo, lo + r
+
+    def sort(lo, hi):
+        if hi - lo >= 1:
+            mid = lo + (hi - lo) // 2
+            yield from sort(lo, mid)
+            yield from sort(mid + 1, hi)
+            yield from merge(lo, hi, 1)
+
+    return list(sort(0, n - 1))
+
+
+def selection_ops(size: int) -> float:
+    """Minimum and maximum operations per output of the kernel's grouped selection for ``size``.
+
+    The networks of ``csrc/median_select.cuh`` (the core's sort, the halving
+    merges) built symbolically, with the constant pads folded (a minimum
+    with the key above all keys is the other key) and what no median reads
+    dropped, as a compiler does. Loads, key conversions and the run's
+    bookkeeping are not counted.
+    """
+    high = "high"
+    nodes = []  # (a, b) of each minimum or maximum
+
+    def op(a, b, is_min):
+        if a == high or b == high:
+            return (b if a == high else a) if is_min else high
+        nodes.append((a, b))
+        return len(nodes) - 1
+
+    def var():
+        nodes.append(None)
+        return len(nodes) - 1
+
+    def sort(keys, n):
+        r = keys + [high] * (n - len(keys))
+        for i, j in _batcher(n):
+            r[i], r[j] = op(r[i], r[j], True), op(r[i], r[j], False)
+        return r
+
+    def merge_band(band, add):
+        g = len(band)
+        r = list(band) + list(add) + [high] * (g - len(add))
+        # the odd-even merge of two sorted halves: what Batcher's sort of 2g adds to two of g
+        for i, j in _batcher(2 * g)[2 * len(_batcher(g)):]:
+            r[i], r[j] = op(r[i], r[j], True), op(r[i], r[j], False)
+        return r[g // 2:g]
+
+    w, k = window_width(size), group_size(size)
+    c = w - k + 1
+    p = 1
+    while p < c:
+        p *= 2
+    core = sort([var() for _ in range(c)], p)
+    medians = []
+
+    def descend(band):
+        if len(band) == 1:
+            medians.append(band[0])
+            return
+        h = len(band) // 2
+        for _ in range(2):
+            descend(merge_band(band, sort([var() for _ in range(h)], h)))
+
+    descend(core[w // 2 - k + 1:w // 2 + 1])
+    live, stack = set(), [m for m in medians if m != high]
+    while stack:
+        n = stack.pop()
+        if n in live or nodes[n] is None:
+            continue
+        live.add(n)
+        stack.extend(x for x in nodes[n] if x != high)
+    return len(live) / k
 
 
 @pytest.fixture(scope="module")
@@ -158,8 +258,16 @@ def test_selection_on_magnitudes_with_long_ties(lib):
 def test_group_sizes_divide_the_run(lib):
     for size in range(2, 65):
         k = lib.group_size_of(size)
-        assert k == median.group_size(size)
+        assert k == group_size(size)
         assert k in (1, 4, 8, 16, 32) and RUN % k == 0 and k <= size
+
+
+def test_smoke_script_group_table_matches_the_header(lib):
+    # chip_smoke.py picks its axis lengths around the group from a table of its own
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.MEDIAN_GROUP == {s: lib.group_size_of(s) for s in smoke.MEDIAN_GROUP}
 
 
 @pytest.mark.parametrize("size", range(2, 65, 3))
@@ -171,4 +279,4 @@ def test_selection_halves_the_operations_per_output(size):
     while width < size + size % 2:
         width *= 2
     earlier = 4 * width + 2 * width * size / RUN
-    assert median.selection_ops(size) <= earlier / 2
+    assert selection_ops(size) <= earlier / 2
