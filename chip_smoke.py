@@ -477,7 +477,8 @@ def db_cases(torch, rng, device, mel):
 
 
 # constants quoted beside this run's times, not measured by it: the dB kernel's time on config
-# 1's mel and the median kernel's of PR 6 at size 31 on config 4's |STFT| (PERF.md section 6)
+# 1's mel and the earlier median kernel's (one delete-and-insert pass per output) at size 31 on
+# config 4's |STFT| (PERF.md section 6)
 DB_EARLIER_MS = 0.0812
 MEDIAN_EARLIER_MS = {"harmonic (time)": 2.4983, "percussive (frequency)": 2.8758}
 
@@ -543,7 +544,7 @@ def db_kernel_phase(torch, L, rng, device, mel) -> dict:
     print(f"db_scale launch geometry on {tuple(mel.shape)}, axes {axes}: {channels} channels of "
           f"{n} elements ({4 * n} bytes), {parts} parts each")
     print(f"db_scale kernel on {tuple(mel.shape)}: {ms:.4f} ms (ref max {ms_max:.4f} ms; "
-          f"PR 4's run {DB_EARLIER_MS} ms in PERF.md, a constant), plain torch ops "
+          f"an earlier run {DB_EARLIER_MS} ms in PERF.md, a constant), plain torch ops "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {8 * mel.numel()} read and "
           f"written once; {two_pass_ms:.4f} ms for the {12 * mel.numel()} bytes of two reads "
           f"and a write)")
@@ -1382,7 +1383,7 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
         entry[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms)
         print(f"median_filter kernel, size 31 along the {name} axis of |STFT| {tuple(S.shape)} "
-              f"(strides {S.stride()}): {kernel_ms:.4f} ms (PR 6's kernel "
+              f"(strides {S.stride()}): {kernel_ms:.4f} ms (the earlier kernel "
               f"{MEDIAN_EARLIER_MS[name]} ms in PERF.md, a constant), plain (pad, unfold, "
               f"torch.median; {MAIN_SHAPE[0]} tracks one by one) {plain_ms:.4f} ms, "
               f"torch.median over the unfolded padded view ({MAIN_SHAPE[0]} tracks) "
