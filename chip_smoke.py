@@ -64,6 +64,18 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    and its parts with its peak memory, and holds the mel kernel with the
    pseudo-CQT basis (``pseudo_cqt``, ``hybrid_cqt``) against its plain
    version;
+4h. drives config 1 from audio files: writes 16 files of 2**22 output
+   samples from a seeded PCM16 source (8 mono WAV and 4 mono FLAC at 22050
+   Hz, 4 stereo WAV at 44100 Hz), checks that the port's decoder (built with
+   g++ from ``csrc/audioio.cpp``) read them, ``load``s each with its defaults
+   (the 44.1 kHz files mixed to mono and resampled 2:1 on the card), checks
+   the native-rate tracks bit-equal to their PCM and the resampled ones
+   against float64 ``scipy.signal.resample_poly``, runs ``entry()``'s
+   forward on the stacked batch (bit-equal to the same samples put on the
+   card directly), streams a FLAC and a WAV file in blocks of 256 frames
+   with a mel spectrogram per block against the whole file's, and times
+   decoding, ``load`` and its stages, the forward, the path end to end and
+   the stream;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024;
@@ -1493,6 +1505,214 @@ def cqt_hpss_phase(torch, L, device, y, win) -> dict:
             "e2e_ms": e2e_ms}
 
 
+FILES_N = 1 << 22                  # output samples of every file, as the main path's tracks
+FILES_SR_HIGH = 44100              # the stereo files' rate: 2:1 to 22050 on the card
+FILES_KINDS = ("wav", "flac", "wav44k")  # 8 mono WAV, 4 mono FLAC, 4 stereo WAV at 44.1 kHz
+STREAM_KW = dict(block_length=256, frame_length=2048, hop_length=512)
+
+
+def write_files(tmp, rng) -> list:
+    """The 16 files of phase 4h: (kind, path, pcm int16 (n, channels)), from a seeded source."""
+    import wave
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from flac_writer import write_flac
+
+    out = []
+    for i, kind in enumerate(["wav"] * 8 + ["flac"] * 4 + ["wav44k"] * 4):
+        sr, n, ch = ((FILES_SR_HIGH, 2 * FILES_N, 2) if kind == "wav44k" else (SR, FILES_N, 1))
+        t = np.arange(n) / sr
+        x = 0.25 * np.sin(2 * np.pi * (110.0 * (i + 1)) * t)[:, None] + 0.08 * rng.randn(n, ch)
+        pcm = np.clip(np.round(x * 32767), -32768, 32767).astype("<i2")
+        path = f"{tmp}/{i:02d}_{kind}.{'flac' if kind == 'flac' else 'wav'}"
+        if kind == "flac":
+            write_flac(path, pcm, sr)
+        else:
+            with wave.open(path, "wb") as w:
+                w.setnchannels(ch)
+                w.setsampwidth(2)
+                w.setframerate(sr)
+                w.writeframes(pcm.tobytes())
+        out.append((kind, path, pcm))
+    return out
+
+
+def best_s(fn, repeats: int = 3) -> float:
+    """Best of ``repeats`` host-clock timings of ``fn()``, in seconds."""
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def files_phase(torch, L, device, smi: str) -> dict:
+    """Phase 4h: config 1 from audio files: decode on the host, load, the forward on the card,
+    stream; checked and timed."""
+    import ctypes
+    import tempfile
+    import warnings
+
+    import scipy.signal
+    from librosa_tpu_torch._device import as_tensor
+    from librosa_tpu_torch.entry import entry
+    from librosa_tpu_torch.io import _native, _soxr
+    from librosa_tpu_torch.ops import db_scale, fused_stft, median, ola_norm
+
+    lib = _native.library()
+    if lib is None:
+        raise AssertionError("the port's audio decoder did not build or load")
+    lib_path = _native.library_path()
+    if lib_path.parent.name != "_build" or lib_path.parent.parent.name != "librosa_tpu_torch":
+        raise AssertionError(f"decoder library outside librosa_tpu_torch/_build: {lib_path}")
+    codecs = {}
+    for name, sonames in (("libvorbisfile", ("libvorbisfile.so.3", "libvorbisfile.so")),
+                          ("libmpg123", ("libmpg123.so.0", "libmpg123.so"))):
+        codecs[name] = False
+        for soname in sonames:
+            try:
+                ctypes.CDLL(soname)
+            except OSError:
+                continue
+            codecs[name] = True
+            break
+    print(f"decoder: {lib_path}; libsoxr loads {_soxr.available()}, "
+          + ", ".join(f"{k} loads {v}" for k, v in codecs.items())
+          + " (the decoder dlopens the last two for Ogg Vorbis and MP3 files only)")
+    forward, _ = entry()
+    rng = np.random.RandomState(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = write_files(tmp, rng)
+        print(f"4h files: {len(files)} written in {time.perf_counter() - t0:.2f} s "
+              f"({sum(p.nbytes for _, _, p in files) / 1e6:.1f} MB of PCM)")
+
+        # load every file with its defaults; the resampled ones warn once that soxr_hq is replaced
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loaded = []
+            for kind, path, _ in files:
+                with L.io.AudioReader(path) as reader:
+                    if reader._nat is None:
+                        raise AssertionError(f"{path} was read by the wave fallback")
+                loaded.append(L.load(path))
+        for w in caught:
+            print(f"4h load warning: {w.message}")
+        for (kind, path, pcm), (y, sr) in zip(files, loaded):
+            if sr != SR or y.shape != (FILES_N,) or y.dtype != np.float32:
+                raise AssertionError(f"load({path}) -> {y.shape} {y.dtype} at {sr}")
+            if kind != "wav44k":
+                if not np.array_equal(y, pcm[:, 0].astype(np.float32) / 32768.0):
+                    raise AssertionError(f"{kind} file {path} is not bit-equal to its PCM")
+        resample_snr = []
+        for (kind, path, pcm), (y, _) in zip(files, loaded):
+            if kind == "wav44k":
+                mix = (pcm.astype(np.float64) / 32768.0).mean(axis=1)
+                want = scipy.signal.resample_poly(mix, 1, 2)[:FILES_N]
+                resample_snr.append(snr_db(y, want))
+        print(f"4h native-rate tracks bit-equal to pcm / 32768: 12 of 12; 2:1 resampled tracks "
+              f"vs float64 resample_poly: min {min(resample_snr):.1f} dB (floor "
+              f"{MIN_RESAMPLE_SNR_DB})")
+        if not min(resample_snr) >= MIN_RESAMPLE_SNR_DB:
+            raise AssertionError(f"4h resample {min(resample_snr):.1f} dB < {MIN_RESAMPLE_SNR_DB}")
+
+        batch = np.stack([y for y, _ in loaded])
+        fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
+        out = forward(batch)
+        torch.cuda.synchronize()
+        counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+                  "ola_norm": ola_norm.launches, "median_filter": median.launches}
+        batch_d = torch.from_numpy(batch).to(device)
+        direct = forward(batch_d)
+        print(f"4h forward on the loaded batch {batch.shape}: mfcc {tuple(out.shape)}, launches "
+              f"{counts}; bit-equal to the forward on the same samples put on the card directly: "
+              f"{bool(torch.equal(out, direct))}")
+        if counts["stft_mel"] < 1 or counts["db_scale"] < 1:
+            raise AssertionError(f"config 1 from files did not launch both kernels: {counts}")
+        if tuple(out.shape) != (16, 20, 1 + FILES_N // 512) or not torch.isfinite(out).all():
+            raise AssertionError(f"4h mfcc {tuple(out.shape)}")
+        if not torch.equal(out, direct):
+            raise AssertionError("4h: the mfcc of the loaded batch differs from the direct run")
+        del direct
+
+        # stream one FLAC and one WAV file at the native rate, mel per block (center=False)
+        mel_kw = dict(sr=SR, n_fft=2048, hop_length=512, n_mels=128, center=False)
+        stream_rows = {}
+        for kind in ("flac", "wav"):
+            path = next(p for k, p, _ in files if k == kind)
+            parts = [L.feature.melspectrogram(y=torch.from_numpy(b).to(device), **mel_kw)
+                     for b in L.stream(path, **STREAM_KW) if b.shape[-1] >= 2048]
+            got = torch.cat(parts, dim=-1)
+            y_full, _ = L.load(path, sr=None)
+            whole = L.feature.melspectrogram(y=torch.from_numpy(y_full).to(device), **mel_kw)
+            if got.shape != whole.shape:
+                raise AssertionError(f"4h stream {kind}: {tuple(got.shape)} frames against "
+                                     f"{tuple(whole.shape)}")
+            s = (float("inf") if torch.equal(got, whole)
+                 else snr_db(got.cpu().numpy(), whole.cpu().numpy()))
+            equal = float((got == whole).all(dim=0).double().mean())
+            print(f"4h stream {kind}: {len(parts)} blocks, mel {tuple(got.shape)} vs the whole "
+                  f"file's: {s:.1f} dB (floor {MIN_SNR_DB}), {100 * equal:.2f} % of frames "
+                  "bit-equal")
+            if not s >= MIN_SNR_DB:
+                raise AssertionError(f"4h stream {kind}: {s:.1f} dB")
+
+            def run_stream(path=path):
+                n = 0
+                for b in L.stream(path, **STREAM_KW):
+                    if b.shape[-1] >= 2048:
+                        L.feature.melspectrogram(y=torch.from_numpy(b).to(device), **mel_kw)
+                    n += 1
+                torch.cuda.synchronize()
+                return n
+
+            n_blocks = run_stream()
+            stream_rows[kind] = n_blocks / best_s(run_stream)
+
+        # times: decode, load and its stages, the forward, end to end, stream
+        rows = {}
+        for kind in FILES_KINDS:
+            path = next(p for k, p, _ in files if k == kind)
+            decode_s = best_s(lambda: L.io.read_audio(path))
+            y_host, native_sr = L.io.read_audio(path)
+            h2d_s = best_s(lambda: (as_tensor(y_host), torch.cuda.synchronize()))
+            yd = as_tensor(y_host)
+            mono_ms = time_ms(torch, lambda: L.to_mono(yd), 5)
+            ym = L.to_mono(yd)
+            res_ms = (time_ms(torch, lambda: L.resample(ym, orig_sr=native_sr, target_sr=SR,
+                                                        res_type="polyphase"), 5)
+                      if native_sr != SR else 0.0)
+            y_out = (L.resample(ym, orig_sr=native_sr, target_sr=SR, res_type="polyphase")
+                     if native_sr != SR else ym)
+            d2h_s = best_s(lambda: y_out.cpu().numpy())
+            load_s = best_s(lambda: L.load(path, res_type="polyphase"))
+            rows[kind] = dict(decode_ms=1e3 * decode_s, h2d_ms=1e3 * h2d_s, mono_ms=mono_ms,
+                              resample_ms=res_ms, d2h_ms=1e3 * d2h_s, load_ms=1e3 * load_s)
+            print(f"4h {kind}: load {1e3 * load_s:.4f} ms a file; its stages alone: decode "
+                  f"{1e3 * decode_s:.4f} ms, copy to the card {1e3 * h2d_s:.4f} ms, to_mono "
+                  f"{mono_ms:.4f} ms, resample {res_ms:.4f} ms, copy back {1e3 * d2h_s:.4f} ms "
+                  f"(host clock; to_mono and resample by CUDA events; {smi})")
+        batch_d = torch.from_numpy(batch).to(device)
+        forward_ms = time_ms(torch, lambda: forward(batch_d), 5)
+        del batch_d
+
+        def end_to_end():
+            ys = [L.load(path, res_type="polyphase")[0] for _, path, _ in files]
+            forward(np.stack(ys))
+            torch.cuda.synchronize()
+
+        e2e_s = best_s(end_to_end, 2)
+        samples = len(files) * FILES_N
+        print(f"4h forward on the loaded batch: {forward_ms:.4f} ms; config 1 from files end to "
+              f"end (16 loads, stack, forward): {1e3 * e2e_s:.4f} ms, "
+              f"{samples / e2e_s:.6e} samples/s; stream with mel per block: "
+              + ", ".join(f"{k} {v:.2f} blocks/s" for k, v in stream_rows.items()) + f" ({smi})")
+    return {"launches": counts, "rows": rows, "forward_ms": forward_ms, "e2e_ms": 1e3 * e2e_s,
+            "stream_blocks_s": stream_rows}
+
+
 def main() -> int:
     import torch
 
@@ -1511,7 +1731,8 @@ def main() -> int:
     # 0. build, one nvcc per source, all at once
     t0 = time.perf_counter()
     _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(_build.SOURCES)}")
+    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(_build.SOURCES)} with nvcc and "
+          f"{sorted(_build.HOST_SOURCES)} with g++")
     for kernel in sorted(_build.SOURCES):
         for line in _build.build_log(kernel).splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
@@ -1675,17 +1896,19 @@ def main() -> int:
     tuning_phase(torch, L, device, y, win)
     median_kernel_phase(torch, L, rng, device)
     config4 = cqt_hpss_phase(torch, L, device, y, win)
+    from_files = files_phase(torch, L, device, smi)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
         "source": "librosa_tpu_torch/csrc/stft_mel.cu",
         "replaces": "librosa_tpu/ops/pallas_stft.py:487",
         "launches": (main_launches + stack["launches"]["stft_mel"]
-                     + recon["launches"]["stft_mel"]),
+                     + recon["launches"]["stft_mel"] + from_files["launches"]["stft_mel"]),
         "launches_by_path": {"mel_db_mfcc": main_launches,
                              "feature_stack": stack["launches"]["stft_mel"],
                              "reconstruction": recon["launches"]["stft_mel"],
-                             "cqt_hpss": config4["launches"]["stft_mel"]},
+                             "cqt_hpss": config4["launches"]["stft_mel"],
+                             "config1_files": from_files["launches"]["stft_mel"]},
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -1697,17 +1920,24 @@ def main() -> int:
         "other_bases": {**stack["bases"], "pseudo_cqt": config4["pseudo_cqt_basis"]},
         "reconstruction_shape": recon["stft_mel"],
     }
-    db_entry["launches"] = main_db_launches + stack["launches"]["db_scale"]
+    db_entry["launches"] = (main_db_launches + stack["launches"]["db_scale"]
+                            + from_files["launches"]["db_scale"])
     db_entry["launches_by_path"] = {"mel_db_mfcc": main_db_launches,
                                     "feature_stack": stack["launches"]["db_scale"],
                                     "reconstruction": recon["launches"]["db_scale"],
-                                    "cqt_hpss": config4["launches"]["db_scale"]}
+                                    "cqt_hpss": config4["launches"]["db_scale"],
+                                    "config1_files": from_files["launches"]["db_scale"]}
     diag_entries = staged_diagnostics(torch, device, y, kernel_ms)
     ola_entry = recon["ola_norm"]
     ola_entry["launches"] += config4["launches"]["ola_norm"]
     ola_entry["launches_by_path"]["cqt_hpss"] = config4["launches"]["ola_norm"]
-    print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry,
-                                  config4["median_filter"], *diag_entries]}))
+    ola_entry["launches"] += from_files["launches"]["ola_norm"]
+    ola_entry["launches_by_path"]["config1_files"] = from_files["launches"]["ola_norm"]
+    median_entry = config4["median_filter"]
+    median_entry["launches"] += from_files["launches"]["median_filter"]
+    median_entry["launches_by_path"]["config1_files"] = from_files["launches"]["median_filter"]
+    print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,
+                                  *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

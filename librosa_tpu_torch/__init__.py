@@ -1,7 +1,7 @@
 """librosa_tpu_torch: audio and music analysis on PyTorch and CUDA.
 
 The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
-(flat ``stft``, ``istft``, ``griffinlim``, ``magphase``, ``power_to_db``,
+(flat ``load``, ``stream``, ``to_mono``, ``get_duration``, ``stft``, ``istft``, ``griffinlim``, ``magphase``, ``power_to_db``,
 ``amplitude_to_db`` and their inverses, ``perceptual_weighting``, ``resample``,
 ``piptrack``, ``pitch_tuning``, ``estimate_tuning``, ``tone``, ``chirp``,
 ``clicks``; ``feature.melspectrogram``,
@@ -33,6 +33,7 @@ from .core.notation import *  # noqa: F401,F403
 from .core.pitch import *  # noqa: F401,F403
 from .core.spectrum import *  # noqa: F401,F403
 from .util.exceptions import LibrosaError, ParameterError  # noqa: F401
+from .util.files import cite, ex, example  # noqa: F401
 from .version import show_versions, version as __version__  # noqa: F401
 
 from . import core, decompose, effects, feature, filters, io, ops, util  # noqa: F401

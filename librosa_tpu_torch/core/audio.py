@@ -1,4 +1,10 @@
-"""Resampling and signal synthesis.
+"""Loading and streaming audio, channel mixing, resampling and signal synthesis.
+
+``load`` and ``stream`` decode on the host (``io``); ``load`` then mixes
+and resamples on the port's device and returns a numpy array, and
+``stream`` yields numpy blocks. The signal functions (``autocorrelate``,
+``lpc``, ``zero_crossings``, the mu-law pair, the channel mixers) are torch
+ops on the input's device.
 
 The resamplers run on the input's device: polyphase FIR resampling as one
 matrix product in full float32 (``scipy.signal.resample_poly``'s filter and
@@ -13,18 +19,344 @@ from __future__ import annotations
 
 import functools
 import warnings
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Generator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import io as audio_io
 from .._device import as_tensor, device_table, exact_f32
 from ..util.exceptions import ParameterError
-from ..util.utils import fix_length
+from ..util.utils import _device_reduction, fix_length, is_positive_int, tiny
 from .convert import frames_to_samples, time_to_samples
 
-__all__ = ["resample", "tone", "chirp", "clicks"]
+__all__ = ["load", "loadx", "stream", "to_mono", "to_stereo", "to_multi", "resample",
+           "get_duration", "get_samplerate", "autocorrelate", "lpc", "zero_crossings",
+           "clicks", "tone", "chirp", "mu_compress", "mu_expand"]
+
+
+# ---------------------------------------------------------------------------
+# Loading and streaming
+# ---------------------------------------------------------------------------
+
+
+def load(
+    path: Any,
+    *,
+    sr: Optional[float] = 22050,
+    mono: bool = True,
+    offset: float = 0.0,
+    duration: Optional[float] = None,
+    dtype: Any = np.float32,
+    res_type: str = "soxr_hq",
+) -> Tuple[np.ndarray, Union[int, float]]:
+    """Load an audio file as a floating-point time series ``(y, sr)``.
+
+    The file is decoded on the host (:func:`io.read_audio`: ``offset`` and
+    ``duration`` in seconds, a negative ``offset`` counts from the end); then
+    :func:`to_mono` (with ``mono``) and :func:`resample` to ``sr`` (unless
+    ``sr`` is None or the file's rate) run on the port's device, and ``y``
+    comes back to the host as a numpy array ``(n,)`` or ``(channels, n)`` of
+    ``dtype``. On the card a ``soxr_*`` ``res_type`` is replaced by
+    ``polyphase`` (integer rates) or ``kaiser_best``, with a warning, as
+    :func:`resample` does for any input there.
+    """
+    y, native_rate = audio_io.read_audio(path, offset=offset, duration=duration, dtype=dtype)
+    out_rate = native_rate if sr is None else sr
+    if mono or out_rate != native_rate:
+        # one copy to the device, the stages there, one copy back
+        yd = as_tensor(y)
+        if mono:
+            yd = to_mono(yd)
+        if out_rate != native_rate:
+            yd = resample(yd, orig_sr=native_rate, target_sr=out_rate, res_type=res_type)
+        y = yd.cpu().numpy()
+    return np.asarray(y, dtype=dtype), out_rate
+
+
+def loadx(key: str, *, hq: Optional[bool] = None,
+          **kwargs: Any) -> Tuple[np.ndarray, Union[int, float]]:
+    """:func:`load` of the example recording ``key`` (``util.example``); ``kwargs`` go to ``load``."""
+    from ..util.files import example
+
+    return load(example(key, hq=bool(hq)), **kwargs)
+
+
+_STREAM_RES_TYPES = ("soxr_vhq", "soxr_hq", "soxr_mq", "soxr_lq", "soxr_qq")
+
+
+def stream(
+    path: Any,
+    *,
+    block_length: int,
+    frame_length: int,
+    hop_length: int,
+    sr: Optional[float] = None,
+    mono: bool = True,
+    offset: float = 0.0,
+    duration: Optional[float] = None,
+    fill_value: Optional[float] = None,
+    res_type: str = "soxr_hq",
+    dtype: Any = np.float32,
+) -> Generator[np.ndarray, None, None]:
+    """Read an audio file in overlapping blocks of ``block_length`` frames, as numpy arrays.
+
+    Each block has ``(block_length - 1) * hop_length + frame_length``
+    samples and starts ``block_length * hop_length`` samples after the one
+    before, so an analysis with ``center=False`` on each block gives the
+    frames of the whole file. The last blocks are shorter, or padded with
+    ``fill_value``. ``path`` may be an open :class:`io.AudioReader`; it is
+    left open. With ``sr`` other than the file's rate the blocks go through
+    libsoxr's streaming resampler (``res_type`` a ``soxr_*`` quality), and
+    one advance must be a whole number of samples at the file's rate.
+
+    Memory is O(block): the decoder is only ever asked for one advance, and
+    the blocks are cut from a ring buffer of ``yield + 2 * advance`` samples.
+    """
+    if not is_positive_int(block_length):
+        raise ParameterError(f"block_length={block_length} must be a positive integer")
+    if not is_positive_int(frame_length):
+        raise ParameterError(f"frame_length={frame_length} must be a positive integer")
+    if not is_positive_int(hop_length):
+        raise ParameterError(f"hop_length={hop_length} must be a positive integer")
+    if sr is not None and not (np.isfinite(sr) and sr > 0):
+        raise ParameterError(f"sr={sr} must be a positive number")
+    if res_type not in _STREAM_RES_TYPES:
+        raise ParameterError(
+            f"res_type={res_type} is not a valid soxr resampling mode for streaming"
+        )
+
+    yield_size = (block_length - 1) * hop_length + frame_length
+    advance = block_length * hop_length
+
+    caller_owns_reader = isinstance(path, audio_io.AudioReader)
+    reader = path if caller_owns_reader else audio_io.AudioReader(path)
+    try:
+        sr_native = reader.sr
+        needs_resampling = sr is not None and sr != sr_native
+        if sr is None:
+            sr = sr_native
+
+        # one advance must be a whole number of samples at the file's rate
+        exact_step = advance * sr_native / sr
+        native_step = int(round(exact_step))
+        if abs(exact_step - native_step) > 1e-5 + 1e-7 * abs(exact_step):
+            raise ParameterError(
+                f"A block advance of {advance} samples at sr={sr} is a "
+                f"fractional number of samples at the native rate "
+                f"{sr_native}; choose block/hop lengths that divide evenly"
+            )
+
+        n_channels = 1 if mono else reader.channels
+        resampler = (audio_io._soxr.StreamResampler(sr_native, sr, channels=n_channels,
+                                                    quality=res_type)
+                     if needs_resampling else None)
+
+        if offset >= 0:
+            reader.seek(int(offset * sr_native))
+        else:
+            if reader.frames is None:
+                raise ParameterError(
+                    "negative offset requires a container that declares its length"
+                )
+            reader.seek(reader.frames + int(offset * sr_native))
+        budget = int(duration * sr_native) if duration is not None else None
+
+        # ring buffer of decoded (and resampled) samples, (n, channels)
+        capacity = yield_size + 2 * advance
+        ring = np.zeros((capacity, n_channels), dtype=dtype)
+        w_idx = r_idx = 0
+
+        def _emit(block2d):
+            # a copy: later reads overwrite the ring under a block the caller still holds
+            if mono or block2d.shape[1] == 1:
+                return block2d[:, 0].copy()
+            return block2d.T.copy()
+
+        while budget is None or budget > 0:
+            chunk = reader.read(native_step if budget is None else min(native_step, budget))
+            if budget is not None:
+                budget -= chunk.shape[0]
+            if chunk.shape[0] == 0:
+                break
+            if mono and reader.channels > 1:
+                chunk = chunk.mean(axis=1, keepdims=True)
+            if resampler is not None:
+                chunk = resampler.process(chunk)
+            chunk = chunk.astype(dtype, copy=False)
+
+            n_in = chunk.shape[0]
+            if w_idx + n_in > capacity:
+                held = w_idx - r_idx
+                ring[:held] = ring[r_idx:w_idx]
+                r_idx, w_idx = 0, held
+            ring[w_idx:w_idx + n_in] = chunk
+            w_idx += n_in
+
+            while w_idx - r_idx >= yield_size:
+                yield _emit(ring[r_idx:r_idx + yield_size])
+                r_idx += advance
+
+        # the resampler's tail, then what is left in the ring
+        tail = [ring[r_idx:w_idx]]
+        if resampler is not None:
+            flushed = resampler.process(np.empty((0, n_channels), dtype=np.float32),
+                                        last=True).astype(dtype, copy=False)
+            if flushed.shape[0]:
+                tail.append(flushed)
+        remainder = np.concatenate(tail) if len(tail) > 1 else tail[0]
+
+        pos = 0
+        while pos < remainder.shape[0]:
+            block = remainder[pos:pos + yield_size]
+            if fill_value is not None and block.shape[0] < yield_size:
+                block = np.pad(block, ((0, yield_size - block.shape[0]), (0, 0)),
+                               constant_values=fill_value)
+            yield _emit(block)
+            pos += advance
+    finally:
+        if not caller_owns_reader:
+            reader.close()
+
+
+def get_samplerate(path: Any) -> int:
+    """The sampling rate that an audio file's header declares (nothing is decoded)."""
+    return audio_io.get_samplerate(path)
+
+
+def get_duration(
+    *,
+    y: Optional[Any] = None,
+    sr: float = 22050,
+    S: Optional[Any] = None,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    center: bool = True,
+    path: Optional[str] = None,
+) -> float:
+    """Duration in seconds of a file (``path``, from its header), a signal ``y`` or a spectrogram ``S``.
+
+    They are consulted in that order. For ``S`` the framing is inverted:
+    ``n_fft + hop_length * (frames - 1)`` samples, less the centring pad.
+    """
+    if path is not None:
+        native_sr, _, n_frames = audio_io.get_info(path)
+        return float(n_frames) / native_sr
+    if y is not None:
+        return np.shape(y)[-1] / float(sr)
+    if S is None:
+        raise ParameterError(
+            "get_duration needs a signal (y), a spectrogram (S), or a path"
+        )
+    span = n_fft + hop_length * (np.shape(S)[-1] - 1)
+    if center:
+        span -= (n_fft // 2) * 2
+    return span / float(sr)
+
+
+# ---------------------------------------------------------------------------
+# Channel mixing
+# ---------------------------------------------------------------------------
+
+
+def to_mono(*signals: Any, pad: bool = True, norm: bool = True, out: Any = None) -> torch.Tensor:
+    """Mix one or more signals down to one channel.
+
+    Each signal is averaged (``norm``) or summed over its leading axes; the
+    signals are then padded to the longest (``pad``) or cut to the shortest
+    and added, and the sum divided by their number (``norm``). ``out`` is
+    accepted and unused.
+    """
+    if not signals:
+        raise ParameterError("At least one signal must be provided to `to_mono`.")
+    arrs = [as_tensor(y) for y in signals]
+    lengths = [a.shape[-1] for a in arrs]
+    size = max(lengths) if pad else min(lengths)
+    total = None
+    for a in arrs:
+        if a.ndim > 1:
+            lead = tuple(range(a.ndim - 1))
+            a = a.mean(dim=lead) if norm else a.sum(dim=lead)
+        a = fix_length(a, size=size, axis=-1)
+        total = a if total is None else total + a
+    if norm:
+        total = total / len(arrs)
+    return total
+
+
+def to_stereo(*, left: Optional[Any] = None, right: Optional[Any] = None, downmix: bool = True,
+              pad: bool = True, norm: bool = True, out: Any = None) -> torch.Tensor:
+    """Put ``left`` and ``right`` into the two rows of a ``(2, n)`` signal.
+
+    A missing side is silence. With ``downmix`` each side is mixed to mono
+    first (``norm`` as in :func:`to_mono`); without it each side must be
+    mono or already ``(2, n)``, and with both given the sum is halved
+    (``norm``). ``pad`` pads the shorter side, else the longer is cut.
+    """
+    if left is None and right is None:
+        raise ParameterError("to_stereo() needs at least one channel (left= or right=)")
+    both_given = left is not None and right is not None
+    left = None if left is None else as_tensor(left)
+    right = None if right is None else as_tensor(right)
+    sides = [torch.zeros_like(right) if left is None else left,
+             torch.zeros_like(left) if right is None else right]
+    lengths = [s.shape[-1] for s in sides]
+    size = max(lengths) if pad else min(lengths)
+    sides = [fix_length(s, size=size, axis=-1) for s in sides]
+
+    if downmix:
+        return torch.stack([to_mono(s, norm=norm) for s in sides])
+
+    def _as_channel(x: torch.Tensor, slot: int) -> torch.Tensor:
+        if x.ndim == 2 and x.shape[0] == 2:
+            return x
+        if x.ndim == 1:
+            rows = [x, torch.zeros_like(x)]
+            return torch.stack(rows if slot == 0 else rows[::-1])
+        raise ParameterError(
+            f"downmix=False accepts mono or (2, n) inputs; got shape {tuple(x.shape)}"
+        )
+
+    mixed = _as_channel(sides[0], 0) + _as_channel(sides[1], 1)
+    if norm and both_given:
+        mixed = mixed / 2
+    return mixed
+
+
+def to_multi(*signals: Any, downmix: bool = True, pad: bool = True, norm: bool = True,
+             out: Any = None) -> torch.Tensor:
+    """Stack signals as the channels of one ``(len(signals), n)`` signal.
+
+    With ``downmix`` each signal is mixed to mono first; without it all must
+    have one channel layout, and they are added (and divided by their number
+    with ``norm``). ``pad`` pads to the longest, else all are cut to the
+    shortest.
+    """
+    if not signals:
+        raise ParameterError("At least one signal must be provided.")
+    arrs = [as_tensor(y) for y in signals]
+    lengths = [a.shape[-1] for a in arrs]
+    size = max(lengths) if pad else min(lengths)
+
+    if downmix:
+        return torch.stack([fix_length(to_mono(a, norm=norm), size=size, axis=-1)
+                            for a in arrs], dim=0)
+
+    layout = arrs[0].shape[:-1]
+    for a in arrs:
+        if a.shape[:-1] != layout:
+            raise ParameterError(
+                f"Cannot combine signals with different channel layouts "
+                f"{tuple(a.shape[:-1])} when downmix=False"
+            )
+    total = None
+    for a in arrs:
+        a = fix_length(a, size=size, axis=-1)
+        total = a if total is None else total + a
+    if norm:
+        total = total / len(arrs)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -449,3 +781,143 @@ def chirp(*, fmin: float, fmax: float, sr: float = 22050, length: Optional[int] 
         angle = (2 * np.pi * fmin * duration / np.log(growth)) * (
             np.power(growth, t / duration) - 1.0)
     return np.cos(angle + start_phase)
+
+
+# ---------------------------------------------------------------------------
+# Autocorrelation, linear prediction, zero crossings
+# ---------------------------------------------------------------------------
+
+
+def autocorrelate(y: Any, *, max_size: Optional[int] = None, axis: int = -1) -> torch.Tensor:
+    """Autocorrelation of ``y`` along ``axis`` for the first ``max_size`` lags (default: all).
+
+    ``irfft(|rfft(y)|**2)`` (``ifft`` / ``fft`` for complex input) over a
+    length of at least ``2 n - 1`` (scipy's next fast length), so that the
+    correlation is linear, not circular. Lag 0 is the energy.
+    """
+    import scipy.fft
+
+    y = as_tensor(y)
+    n = y.shape[axis]
+    max_size = n if max_size is None else int(min(max_size, n))
+    n_pad = scipy.fft.next_fast_len(2 * n - 1, real=True)
+    if y.is_complex():
+        spec = torch.fft.fft(y, n=n_pad, dim=axis)
+        power = (spec.real.square() + spec.imag.square()).to(spec.dtype)
+        autocorr = torch.fft.ifft(power, n=n_pad, dim=axis)
+    else:
+        spec = torch.fft.rfft(y, n=n_pad, dim=axis)
+        autocorr = torch.fft.irfft(spec.real.square() + spec.imag.square(), n=n_pad, dim=axis)
+    return autocorr.narrow(axis, 0, max_size)
+
+
+def _lpc_burg(y: torch.Tensor, order: int) -> torch.Tensor:
+    """Burg's method along axis 0 of ``y``, batched over the other axes.
+
+    The forward and backward prediction errors lose one sample at each
+    order, so each order works on a slice one shorter than the last.
+    """
+    eps = tiny(y)
+    fwd = y[1:]    # forward error, one step ahead
+    bwd = y[:-1]   # backward error
+    den = (fwd.square() + bwd.square()).sum(dim=0)
+    ar = y.new_zeros((order + 1,) + tuple(y.shape[1:]))
+    ar[0] = 1.0
+    for i in range(order):
+        k = -2.0 * (bwd * fwd).sum(dim=0) / (den + eps)
+        # Levinson-Durbin: a_j += k * a_{i + 1 - j} for j = 1 .. i + 1
+        ar[1:i + 2] = ar[1:i + 2] + k * ar[:i + 1].flip(0)
+        fwd, bwd = fwd + k * bwd, bwd + k * fwd
+        den = (1.0 - k.square()) * den - bwd[-1].square() - fwd[0].square()
+        fwd, bwd = fwd[1:], bwd[:-1]
+    return ar
+
+
+def lpc(y: Any, *, order: int, axis: int = -1) -> torch.Tensor:
+    """Linear prediction coefficients of ``y`` along ``axis`` by Burg's method.
+
+    Returns ``order + 1`` coefficients along ``axis``, the first 1, in
+    ``y``'s dtype, for every signal of the other axes.
+    """
+    if not is_positive_int(order):
+        raise ParameterError(f"order={order} must be an integer > 0")
+    y = as_tensor(y)
+    if not y.dtype.is_floating_point:
+        raise ParameterError("Audio data must be floating-point")
+    return _lpc_burg(y.movedim(axis, 0), order).movedim(0, axis)
+
+
+def zero_crossings(
+    y: Any,
+    *,
+    threshold: float = 1e-10,
+    ref_magnitude: Optional[Union[float, Callable]] = None,
+    pad: bool = True,
+    zero_pos: bool = True,
+    axis: int = -1,
+) -> torch.Tensor:
+    """Where the sign of ``y`` changes along ``axis``, as a bool tensor of ``y``'s shape.
+
+    Values with ``|y| <= threshold`` count as zero (``threshold`` is scaled
+    by ``ref_magnitude``, a number or a function of ``|y|`` such as
+    ``np.max``). With ``zero_pos`` zero is positive (the sign bit decides),
+    else zero is a sign of its own. ``pad`` marks the first sample as a
+    crossing.
+    """
+    y = as_tensor(y)
+    if threshold is None:
+        threshold = 0.0
+    if callable(ref_magnitude):
+        mag = y.abs()
+        ref = _device_reduction(ref_magnitude, mag, None)
+        threshold = threshold * float(ref_magnitude(mag) if ref is None else ref)
+    elif ref_magnitude is not None:
+        threshold = threshold * ref_magnitude
+
+    yi = y.movedim(axis, -1)
+    if threshold > 0:
+        yi = torch.where(yi.abs() <= threshold, yi.new_zeros(()), yi)
+    sign = torch.signbit(yi) if zero_pos else torch.sign(yi)
+    cross = sign[..., 1:] != sign[..., :-1]
+    first = torch.full_like(cross[..., :1], bool(pad))
+    return torch.cat([first, cross], dim=-1).movedim(-1, axis)
+
+
+# ---------------------------------------------------------------------------
+# mu-law companding
+# ---------------------------------------------------------------------------
+
+
+def mu_compress(x: Any, *, mu: float = 255, quantize: bool = True) -> torch.Tensor:
+    """mu-law compression of ``x`` in [-1, 1]: ``sign(x) * log1p(mu |x|) / log1p(mu)``.
+
+    With ``quantize`` the output is the integer code of each value's bin
+    among ``mu + 1`` equal bins over [-1, 1], from ``-(mu + 1) // 2``.
+    """
+    if mu <= 0:
+        raise ParameterError(
+            f"mu-law compression parameter mu={mu} must be strictly positive."
+        )
+    x = as_tensor(x)
+    if bool(((x < -1) | (x > 1)).any()):
+        raise ParameterError("mu-law input x must be in the range [-1, +1].")
+    x_comp = torch.sign(x) * torch.log1p(mu * x.abs()) / np.log1p(mu)
+    if not quantize:
+        return x_comp
+    bins = torch.linspace(-1, 1, int(1 + mu), dtype=x_comp.dtype, device=x_comp.device)
+    # bins[i - 1] < x <= bins[i], as numpy's digitize with right=True
+    return torch.bucketize(x_comp, bins, right=False) - int(mu + 1) // 2
+
+
+def mu_expand(x: Any, *, mu: float = 255, quantize: bool = True) -> torch.Tensor:
+    """The inverse of :func:`mu_compress`; with ``quantize``, ``x`` holds its integer codes."""
+    if mu <= 0:
+        raise ParameterError(
+            f"Inverse mu-law compression parameter mu={mu} must be strictly positive."
+        )
+    x = as_tensor(x)
+    if quantize:
+        x = x * 2.0 / (1 + mu)
+    if bool(((x < -1) | (x > 1)).any()):
+        raise ParameterError("Inverse mu-law input x must be in the range [-1, +1].")
+    return torch.sign(x) / mu * (torch.pow(1 + mu, x.abs()) - 1)

@@ -1,14 +1,15 @@
-"""Frequency-scale conversions and weighting curves (host numpy, float64).
+"""Unit conversions, frequency grids and weighting curves (host numpy, float64).
 
 These build the filterbanks' frequency grids and the per-bin offsets of
-perceptual weighting. They run once per configuration on the host, so they
-stay in numpy; only the finished table goes to the card.
+perceptual weighting, and convert between samples, frames, blocks and
+seconds. They run on the host, so they stay in numpy; only a finished table
+goes to the card.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Optional
+from typing import Any, Iterable, Optional
 
 import numpy as np
 
@@ -17,10 +18,12 @@ from ..util.exceptions import ParameterError
 __all__ = [
     "hz_to_mel", "mel_to_hz", "hz_to_octs", "octs_to_hz", "hz_to_midi", "midi_to_hz",
     "note_to_midi", "note_to_hz", "midi_to_note", "hz_to_note", "A4_to_tuning", "tuning_to_A4",
-    "frames_to_samples", "time_to_samples", "fft_frequencies", "mel_frequencies",
+    "frames_to_samples", "samples_to_frames", "frames_to_time", "time_to_frames",
+    "time_to_samples", "samples_to_time", "blocks_to_frames", "blocks_to_samples",
+    "blocks_to_time", "times_like", "samples_like", "fft_frequencies", "mel_frequencies",
     "cqt_frequencies", "tempo_frequencies", "fourier_tempo_frequencies",
     "A_weighting", "B_weighting", "C_weighting", "D_weighting", "Z_weighting",
-    "frequency_weighting",
+    "frequency_weighting", "multi_frequency_weighting",
 ]
 
 # Slaney's mel scale: linear (200/3 Hz per mel) below 1 kHz, logarithmic
@@ -166,9 +169,70 @@ def frames_to_samples(frames: Any, *, hop_length: int = 512,
     return (np.asanyarray(frames) * hop_length + offset).astype(int)
 
 
+def samples_to_frames(samples: Any, *, hop_length: int = 512,
+                      n_fft: Optional[int] = None) -> np.ndarray:
+    """Sample indices to the index of the frame that last started at or before each.
+
+    With ``n_fft``, frames are centred: sample indices are shifted back by
+    ``n_fft // 2`` first.
+    """
+    offset = 0 if n_fft is None else int(n_fft // 2)
+    samples = np.asanyarray(samples)
+    return np.asarray(np.floor((samples - offset) // hop_length), dtype=int)
+
+
+def frames_to_time(frames: Any, *, sr: float = 22050, hop_length: int = 512,
+                   n_fft: Optional[int] = None) -> np.ndarray:
+    """Frame indices to the time in seconds of their first sample (centred with ``n_fft``)."""
+    return samples_to_time(frames_to_samples(frames, hop_length=hop_length, n_fft=n_fft), sr=sr)
+
+
+def time_to_frames(times: Any, *, sr: float = 22050, hop_length: int = 512,
+                   n_fft: Optional[int] = None) -> np.ndarray:
+    """Times in seconds to frame indices, through :func:`time_to_samples`."""
+    return samples_to_frames(time_to_samples(times, sr=sr), hop_length=hop_length, n_fft=n_fft)
+
+
 def time_to_samples(times: Any, *, sr: float = 22050) -> np.ndarray:
     """Times in seconds to sample indices, rounded toward zero."""
     return (np.asanyarray(times) * sr).astype(int)
+
+
+def samples_to_time(samples: Any, *, sr: float = 22050) -> np.ndarray:
+    """Sample indices to times in seconds."""
+    return np.asanyarray(samples) / float(sr)
+
+
+def blocks_to_frames(blocks: Any, *, block_length: int) -> np.ndarray:
+    """Indices of ``stream``'s blocks to the index of each block's first frame."""
+    return block_length * np.asanyarray(blocks)
+
+
+def blocks_to_samples(blocks: Any, *, block_length: int, hop_length: int) -> np.ndarray:
+    """Indices of ``stream``'s blocks to the index of each block's first sample."""
+    return frames_to_samples(blocks_to_frames(blocks, block_length=block_length),
+                             hop_length=hop_length)
+
+
+def blocks_to_time(blocks: Any, *, block_length: int, hop_length: int,
+                   sr: float) -> np.ndarray:
+    """Indices of ``stream``'s blocks to the time in seconds of each block's first sample."""
+    return samples_to_time(
+        blocks_to_samples(blocks, block_length=block_length, hop_length=hop_length), sr=sr)
+
+
+def samples_like(X: Any, *, hop_length: int = 512, n_fft: Optional[int] = None,
+                 axis: int = -1) -> np.ndarray:
+    """The sample index of each frame along ``axis`` of ``X`` (or of ``X`` frames, a number)."""
+    n_frames = X if np.isscalar(X) else np.shape(X)[axis]
+    return frames_to_samples(np.arange(n_frames), hop_length=hop_length, n_fft=n_fft)
+
+
+def times_like(X: Any, *, sr: float = 22050, hop_length: int = 512,
+               n_fft: Optional[int] = None, axis: int = -1) -> np.ndarray:
+    """The time in seconds of each frame along ``axis`` of ``X`` (or of ``X`` frames, a number)."""
+    return samples_to_time(samples_like(X, hop_length=hop_length, n_fft=n_fft, axis=axis),
+                           sr=sr)
 
 
 def fft_frequencies(*, sr: float = 22050, n_fft: int = 2048) -> np.ndarray:
@@ -288,3 +352,9 @@ def frequency_weighting(frequencies: Any, *, kind: Optional[str] = "A",
     if kind not in _WEIGHTINGS:
         raise ParameterError(f"Unknown weighting kind: {kind}")
     return _WEIGHTINGS[kind](frequencies, **kwargs)
+
+
+def multi_frequency_weighting(frequencies: Any, *, kinds: Iterable[str] = "ZAC",
+                              **kwargs: Any) -> np.ndarray:
+    """One row of :func:`frequency_weighting` for each of ``kinds``, stacked on axis 0."""
+    return np.stack([frequency_weighting(frequencies, kind=k, **kwargs) for k in kinds], axis=0)

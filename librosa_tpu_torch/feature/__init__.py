@@ -1,3 +1,4 @@
-"""Feature extraction: mel spectrogram, MFCC, chroma, spectral centroid and roll-off, RMS."""
+"""Feature extraction: mel spectrogram, MFCC, chroma, spectral centroid and roll-off, RMS,
+zero-crossing rate."""
 
 from .spectral import *  # noqa: F401,F403

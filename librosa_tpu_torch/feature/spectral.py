@@ -1,4 +1,4 @@
-"""Spectral features: mel spectrogram, MFCC, chroma, centroid, roll-off and RMS."""
+"""Spectral features: mel spectrogram, MFCC, chroma, centroid, roll-off, RMS and zero-crossing rate."""
 
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from ..util.exceptions import ParameterError
 from ..util.utils import _torch_dtype, abs2, expand_to, normalize, pad_last
 
 __all__ = ["melspectrogram", "mfcc", "chroma_stft", "chroma_cqt", "chroma_cens", "chroma_vqt",
-           "spectral_centroid", "spectral_rolloff", "rms"]
+           "spectral_centroid", "spectral_rolloff", "rms", "zero_crossing_rate"]
 
 
 def _basis_device(make: Callable[..., np.ndarray], sr: float, n_fft: int,
@@ -506,3 +506,26 @@ def rms(
     x = x * expand_to(scale, ndim=x.ndim, axes=-2)
     return (2 * x.sum(dim=-2, keepdim=True) / frame_length**2).sqrt()
 
+
+
+def zero_crossing_rate(y: Any, *, frame_length: int = 2048, hop_length: int = 512,
+                       center: bool = True, **kwargs: Any) -> torch.Tensor:
+    """The share of samples of each frame where the sign changes, ``(..., 1, T)`` float32.
+
+    Frames are padded by ``frame_length // 2`` edge samples a side where
+    ``center``. ``kwargs`` go to ``zero_crossings`` (``threshold``,
+    ``ref_magnitude``, ``zero_pos``; ``pad`` defaults to False), which runs
+    along each frame.
+    """
+    from ..core.audio import zero_crossings
+
+    kwargs["axis"] = -1
+    kwargs.setdefault("pad", False)
+    y = as_tensor(y)
+    if center:
+        y = pad_last(y, int(frame_length // 2), int(frame_length // 2), mode="edge")
+    frames = frame_signal(y, frame_length=int(frame_length), hop_length=int(hop_length))
+    crossings = zero_crossings(frames, **kwargs)  # (..., T, frame_length)
+    # the count times the float32 reciprocal of the length, as the JAX package's mean rounds
+    inv = torch.tensor(1.0 / frames.shape[-1], dtype=torch.float32, device=frames.device)
+    return (crossings.sum(dim=-1, dtype=torch.float32) * inv).unsqueeze(-2)

@@ -1,12 +1,14 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's native code at first use and load it with ctypes.
 
-Each source under ``librosa_tpu_torch/csrc/`` compiles with ``nvcc`` into a
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds) for ``sm_90a``. The library goes into
-``librosa_tpu_torch/_build/`` under a name that carries a hash of the
-source, the headers in ``csrc/`` and the flags, so an edited source is
-rebuilt and a stale library is never loaded. ``nvcc`` is found on ``PATH``
-or under ``$CUDA_HOME/bin``.
+Each CUDA source under ``librosa_tpu_torch/csrc/`` (``SOURCES``) compiles
+with ``nvcc`` into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds) for ``sm_90a``; ``nvcc`` is found on
+``PATH`` or under ``$CUDA_HOME/bin``. The host sources (``HOST_SOURCES``:
+the audio decoder) compile with ``g++`` and build on any machine, with no
+CUDA toolkit. Every library goes into ``librosa_tpu_torch/_build/`` under a
+name that carries a hash of its source and flags (for a CUDA source also
+the headers in ``csrc/``), so an edited source is rebuilt and a stale
+library is never loaded.
 
 Nothing here runs at import: the CPU tests import every module on machines
 with no ``nvcc``.
@@ -34,6 +36,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# host code: g++, linked against libdl only (the codec libraries are dlopen'd)
+HOST_SOURCES = {"audioio": "audioio.cpp"}
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+HOST_LIBS = ["-ldl"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -49,20 +55,36 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    if name in HOST_SOURCES:
+        src = (CSRC / HOST_SOURCES[name]).read_bytes()
+        flags = HOST_FLAGS + HOST_LIBS
+    else:
+        src = (CSRC / SOURCES[name]).read_bytes()
+        src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        flags = NVCC_FLAGS
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def _command(name: str, out: Path) -> list:
+    if name in HOST_SOURCES:
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("g++ not found on PATH")
+        return [cxx, *HOST_FLAGS, str(CSRC / HOST_SOURCES[name]), "-o", str(out), *HOST_LIBS]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / SOURCES[name])]
+
+
 def build_log(name: str) -> str:
-    """nvcc's output for the current build of ``name`` (registers, spills)."""
+    """The compiler's output for the current build of ``name`` (for a kernel: registers, spills)."""
     log = _lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def build_all(names: Iterable[str] = SOURCES) -> None:
-    """Compile every kernel of ``names`` that is not built yet, one ``nvcc`` each, all at once.
+def build_all(names: Iterable[str] = (*SOURCES, *HOST_SOURCES)) -> None:
+    """Compile every library of ``names`` that is not built yet, one compiler each, all at once.
+
+    The default is every CUDA kernel and the host decoder.
 
     Raises ``RuntimeError`` with the compiler's output if a build fails.
     """
@@ -73,28 +95,27 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
         jobs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            _command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, lib, tmp, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited with {proc.returncode}\n{out}")
+            failed.append(f"{name}: the compiler exited with {proc.returncode}\n{out}")
             continue
         lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("native build failed: " + "\n".join(failed))
 
 
 def build(name: str) -> None:
-    """Compile kernel ``name`` unless its library is built already."""
+    """Compile ``name`` (a kernel or the host decoder) unless its library is built already."""
     build_all([name])
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         build(name)

@@ -9,10 +9,12 @@ import torch
 import torch.nn.functional as F
 
 from .._device import as_tensor
+from ..ops.framing import frame_signal
 from .exceptions import ParameterError
 
 __all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax", "localmin",
-           "dtype_r2c", "dtype_c2r", "abs2", "phasor", "softmask", "sparsify_rows"]
+           "dtype_r2c", "dtype_c2r", "abs2", "phasor", "softmask", "sparsify_rows", "frame",
+           "is_positive_int"]
 
 # numpy's names for padding modes, as torch.nn.functional.pad knows them
 _TORCH_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
@@ -49,6 +51,37 @@ def _device_reduction(ref: Any, x: torch.Tensor, axis: Any) -> Optional[torch.Te
             x = x.prod(dim=d, keepdim=True)
         return x
     return getattr(x, name)(dim=dims, keepdim=True)
+
+
+def frame(x: Any, *, frame_length: int, hop_length: int, axis: int = -1,
+          writeable: bool = False, subok: bool = False) -> torch.Tensor:
+    """Overlapping frames of ``x`` along ``axis``, as a view.
+
+    For ``axis=-1``, ``frame(x)[..., j, t]`` is ``x[..., t * hop_length + j]``
+    and the shape is ``(..., frame_length, n_frames)``. For another negative
+    axis the pair ``(frame_length, n_frames)`` takes the axis's place; for a
+    non-negative one the pair is ``(n_frames, frame_length)``. ``writeable``
+    and ``subok`` are accepted and unused.
+    """
+    x = as_tensor(x)
+    if x.shape[axis] < frame_length:
+        raise ParameterError(
+            f"Input is too short (n={x.shape[axis]:d}) for frame_length={frame_length:d}"
+        )
+    if hop_length < 1:
+        raise ParameterError(f"Invalid hop_length: {hop_length:d}")
+    frames = frame_signal(x.movedim(axis, -1), frame_length=frame_length,
+                          hop_length=hop_length)  # (..., n_frames, frame_length)
+    if axis < 0:
+        return frames.movedim((-1, -2), (axis - 1, axis))
+    return frames.movedim((-2, -1), (axis, axis + 1))
+
+
+def is_positive_int(x: Any) -> bool:
+    """Whether ``x`` is an integer (Python or numpy) greater than zero."""
+    if not isinstance(x, (int, np.integer)):
+        return False
+    return x > 0
 
 
 def tiny(x: Any) -> float:

@@ -39,7 +39,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) > 10
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"librosa_tpu_torch/io/_soxr.py", "librosa_tpu_torch/core/audio.py",
-            "librosa_tpu_torch/core/pitch.py", "librosa_tpu_torch/ops/ola_norm.py"} <= names
+            "librosa_tpu_torch/core/pitch.py", "librosa_tpu_torch/ops/ola_norm.py",
+            "librosa_tpu_torch/io/_native.py", "librosa_tpu_torch/util/files.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -110,3 +111,44 @@ def test_util_helpers():
     assert L.util.expand_to(torch.ones(3), ndim=3, axes=1).shape == (1, 3, 1)
     with pytest.raises(L.ParameterError):
         L.util.expand_to(torch.ones(3, 2), ndim=3, axes=1)
+
+
+def test_decoding_maps_no_file_of_the_jax_package(tmp_path):
+    """After ``read_audio`` and ``load``, no file under librosa_tpu/ is mapped into the process.
+
+    The decoder that is mapped is the port's own, built under
+    ``librosa_tpu_torch/_build/``; the JAX package's tracked library is never loaded.
+    """
+    import os
+    import wave
+
+    from flac_writer import write_flac
+
+    pcm = (np.random.RandomState(0).randn(4000, 2) * 3000).astype("<i2")
+    wav, flac = tmp_path / "a.wav", tmp_path / "a.flac"
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    write_flac(str(flac), pcm, 16000)
+    code = (
+        "import sys, librosa_tpu_torch as L\n"
+        "from librosa_tpu_torch.io import _native\n"
+        "L.set_device('cpu')\n"
+        f"y, sr = L.io.read_audio({str(flac)!r})\n"
+        "assert y.shape == (2, 4000) and sr == 16000\n"
+        f"y, sr = L.load({str(wav)!r}, sr=None)\n"
+        "assert y.shape == (4000,)\n"
+        "paths = {line.split()[-1] for line in open('/proc/self/maps') if '/' in line}\n"
+        f"bad = sorted(p for p in paths if p.startswith({str(ROOT / 'librosa_tpu')!r} + '/'))\n"
+        "assert not bad, bad\n"
+        "lib = str(_native.library_path())\n"
+        "assert lib in paths, (lib, sorted(p for p in paths if 'audioio' in p))\n"
+        f"assert lib.startswith({str(ROOT / 'librosa_tpu_torch' / '_build')!r} + '/'), lib\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'librosa_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr

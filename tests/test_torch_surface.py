@@ -1,0 +1,103 @@
+"""The port's public names against the JAX package's four ``.pyi`` stubs, in both directions.
+
+``NOT_PORTED`` lists, for each stub, the names the port does not have yet.
+A stub name that the port lacks and that is not listed fails; so does a
+listed name that turns up in the port, so the list can only shrink. A
+public name of the port that no stub has fails too, except the port's own
+``PORT_OWN``. Submodules of the port that no stub names (``io``, ``entry``,
+the modules behind a namespace) are the port's layout and are not counted.
+"""
+
+import __future__
+import ast
+import types
+from pathlib import Path
+
+import pytest
+
+import librosa_tpu_torch as L
+
+ROOT = Path(__file__).resolve().parent.parent
+STUBS = {
+    "librosa_tpu/__init__.pyi": L,
+    "librosa_tpu/core/__init__.pyi": L.core,
+    "librosa_tpu/feature/__init__.pyi": L.feature,
+    "librosa_tpu/util/__init__.pyi": L.util,
+}
+PORT_OWN = {"librosa_tpu/__init__.pyi": {"get_device", "set_device"}}
+NOT_PORTED = {
+    "librosa_tpu/__init__.pyi": {
+        "beat", "cache", "display", "f0_harmonics", "fifths_to_note", "fmt", "hz_to_fjs",
+        "hz_to_svara_c", "hz_to_svara_h", "iirt", "interp_harmonics", "interval_to_fjs",
+        "list_mela", "list_thaat", "mela_to_degrees", "mela_to_svara", "midi_to_svara_c",
+        "midi_to_svara_h", "note_to_svara_c", "note_to_svara_h", "onset", "parallel", "pcen",
+        "phase_vocoder", "pyin", "reassigned_spectrogram", "salience", "segment", "sequence",
+        "thaat_to_degrees", "yin",
+    },
+    "librosa_tpu/core/__init__.pyi": {
+        "hz_to_fjs", "hz_to_svara_c", "hz_to_svara_h", "midi_to_svara_c", "midi_to_svara_h",
+        "note_to_svara_c", "note_to_svara_h", "pcen", "phase_vocoder", "pyin", "yin",
+    },
+    "librosa_tpu/feature/__init__.pyi": {
+        "delta", "fourier_tempogram", "hybrid_tempogram", "inverse", "mel_to_audio",
+        "mel_to_stft", "metrogram", "mfcc_to_audio", "mfcc_to_mel", "poly_features",
+        "spectral_bandwidth", "spectral_contrast", "spectral_flatness", "stack_memory", "tempo",
+        "tempogram", "tempogram_ratio", "tonnetz",
+    },
+    "librosa_tpu/util/__init__.pyi": {
+        "MAX_MEM_BLOCK", "axis_sort", "buf_to_float", "count_unique", "cyclic_gradient",
+        "fill_off_diagonal", "fix_frames", "index_to_slice", "interp_broadcast", "is_unique",
+        "match_events", "match_intervals", "nnls", "peak_pick", "shear", "stack", "sync",
+        "valid_audio", "valid_int", "valid_intervals",
+    },
+}
+
+
+def stub_names(stub: str) -> set:
+    names = set()
+    for node in ast.parse((ROOT / stub).read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.AnnAssign):
+            names.add(node.target.id)
+    return names
+
+
+def port_names(module) -> set:
+    """Public names of ``module``, submodules and ``from __future__`` features left out."""
+    return {n for n in dir(module) if not n.startswith("_")
+            and not isinstance(getattr(module, n), (types.ModuleType, __future__._Feature))}
+
+
+def port_modules(module) -> set:
+    return {n for n in dir(module) if isinstance(getattr(module, n), types.ModuleType)}
+
+
+@pytest.mark.parametrize("stub", list(STUBS))
+def test_every_stub_name_is_ported_or_listed(stub):
+    module = STUBS[stub]
+    missing = stub_names(stub) - port_names(module) - port_modules(module)
+    assert not missing - NOT_PORTED[stub], f"missing and not listed: {sorted(missing - NOT_PORTED[stub])}"
+    arrived = NOT_PORTED[stub] - missing
+    assert not arrived, f"ported now, take them off NOT_PORTED: {sorted(arrived)}"
+
+
+@pytest.mark.parametrize("stub", list(STUBS))
+def test_every_port_name_is_in_the_stub(stub):
+    extra = port_names(STUBS[stub]) - stub_names(stub) - PORT_OWN.get(stub, set())
+    assert not extra, f"public names no stub has: {sorted(extra)}"
+
+
+def test_this_slice_is_off_the_list():
+    slice_names = {"load", "loadx", "stream", "to_mono", "to_stereo", "to_multi", "get_duration",
+                   "get_samplerate", "autocorrelate", "lpc", "zero_crossings", "mu_compress",
+                   "mu_expand", "samples_to_frames", "frames_to_time", "time_to_frames",
+                   "samples_to_time", "blocks_to_frames", "blocks_to_samples", "blocks_to_time",
+                   "multi_frequency_weighting", "times_like", "samples_like", "example", "ex",
+                   "cite", "frame", "zero_crossing_rate", "is_positive_int", "list_examples",
+                   "example_info", "find_files", "Deprecated", "rename_kw"}
+    for stub in STUBS:
+        assert not slice_names & NOT_PORTED[stub], (stub, sorted(slice_names & NOT_PORTED[stub]))
+    for name in ("load", "stream", "to_mono", "lpc", "zero_crossings", "times_like"):
+        assert getattr(L, name) is getattr(L.core, name)
+    assert L.example is L.util.example and L.util.frame is L.util.utils.frame
