@@ -76,6 +76,20 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    with a mel spectrogram per block against the whole file's, and times
    decoding, ``load`` and its stages, the forward, the path end to end and
    the stream;
+4i. config 5: holds the batched beat DP kernel (``csrc/beat_dp.cu``) against
+   its plain version, bit for bit on NaN-filled memory (ragged T from 1 to
+   8193, tempo per row and per frame, a window past 1024 frames, an all
+   negative row; 1 and 16 rows), and the Viterbi kernel (``csrc/viterbi.cu``)
+   likewise (2 to 1027 states, 1 to 8193 frames, pYIN's pruned transitions,
+   a third of the transitions -inf, exact ties); drives
+   ``entry.onset_beat_pyin()`` (onset strength, tempo, beats, pYIN at 65-800
+   Hz) on 16 seeded tracks of a melody over clicks of 2**22 samples, checks
+   its launches (stft_mel, db_scale, beat_dp and viterbi once each) and
+   holds tracks 0 and 1 against the port's float64 CPU run; runs bench.py's
+   1-D shapes (``beat_track`` of 30 s through the host DP, ``pyin`` of 5 s)
+   against float64 too; holds both kernels at the path's shapes against
+   their plain versions and times the path, its parts, both kernels, their
+   plain versions and bounds, with the peak memory;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024;
@@ -1713,6 +1727,361 @@ def files_phase(torch, L, device, smi: str) -> dict:
             "stream_blocks_s": stream_rows}
 
 
+# ---------------------------------------------------------------------------
+# 4i: config 5 (onset strength, tempo, beats, pYIN) and its two kernels
+# ---------------------------------------------------------------------------
+
+PYIN5 = dict(fmin=65.0, fmax=800.0)  # bench.py's pyin call: 870 states at resolution 0.1
+MIN_ENV_SNR_DB = 110.0    # the onset_strength golden's floor
+MIN_F0_SNR_DB = 100.0     # f0 where both runs say voiced
+MIN_VOICED_EQUAL = 0.999  # share of frames with the same voicing decision
+BEAT_TOL_FRAMES = 1       # the beat golden's rule: each beat within a frame, one beat more or less
+
+
+def config5_signal(torch, shape, seed, device):
+    """Tracks of a melody over clicks, each at a tempo of its own, made from ``seed`` on ``device``.
+
+    Per track: a tempo of 80-160 BPM; a tone of four harmonics whose pitch
+    steps by up to three semitones on each beat (at most an octave from a
+    start of 110-440 Hz), with a 5 Hz vibrato of 0.3 %, decaying after each
+    beat; a noise burst on each beat; a noise floor 40 dB down.
+    """
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows, n = shape
+    f64 = dict(device=device, dtype=torch.float64)
+    t = torch.arange(n, **f64) / SR
+    bpm = 80 + 80 * torch.rand(rows, 1, generator=g, **f64)
+    f0 = 110 * 2 ** (2 * torch.rand(rows, 1, generator=g, **f64))
+    beat_pos = t * bpm / 60
+    steps = torch.randint(-3, 4, (rows, int(beat_pos.max()) + 2), generator=g, device=device)
+    semis = torch.cumsum(steps, 1).clamp(-12, 12).double().gather(1, beat_pos.long())
+    pitch = f0 * 2 ** (semis / 12) * (1 + 0.003 * torch.sin(2 * np.pi * 5 * t))
+    phase = 2 * np.pi * torch.cumsum(pitch / SR, dim=1)
+    tone = sum(torch.sin(k * phase) / k for k in range(1, 5))
+    frac = torch.frac(beat_pos)
+    noise = torch.randn(rows, n, generator=g, **f64)
+    y = 0.2 * tone * torch.exp(-8 * frac) + 0.3 * noise * torch.exp(-frac * 60 / bpm * 200)
+    return (y + 0.01 * noise).float()
+
+
+def beats_agree(got, want, tol: int = BEAT_TOL_FRAMES) -> bool:
+    """The beat golden's comparison: one beat more or less, the rest within ``tol`` frames."""
+    g, w = np.sort(np.asarray(got).ravel()), np.sort(np.asarray(want).ravel())
+    if abs(len(g) - len(w)) > 1:
+        return False
+    n = min(len(g), len(w))
+    return any(np.all(np.abs(g[o:o + n] - w[:n]) <= tol) for o in range(len(g) - n + 1)) \
+        or bool(np.all(np.abs(g[:n] - w[:n]) <= tol))
+
+
+def poison_all(torch, shapes, device) -> None:
+    """NaN-filled buffers of every shape, held together and then freed (see :func:`poison`)."""
+    bufs = [torch.full(s, float("nan"), dtype=torch.float32, device=device) for s in shapes]
+    del bufs
+
+
+def beat_dp_kernel_phase(torch, rng, device) -> None:
+    """Phase 4i, kernel A: the batched beat DP against its plain version, bit for bit."""
+    from librosa_tpu_torch.ops import beat_dp
+
+    cases = [(f"T {T}, 16 rows, fpb 38-48 a row", 16, T, False, 43, 5, False)
+             for T in (1, 31, 1023, 1025, 8193)]
+    cases += [("T 1025, 16 rows, fpb per frame", 16, 1025, True, 43, 5, False),
+              ("T 8193, 1 row, fpb per frame", 1, 8193, True, 30, 8, False),
+              ("T 2000, 1 row, fpb 700 (2 fpb beyond the 1024 window)", 1, 2000, False, 700, 0,
+               False),
+              ("T 1025, 16 rows, row 3 all negative (first-beat gating)", 16, 1025, False, 43, 5,
+               True)]
+    for label, rows, T, tv, fpb0, spread, negative in cases:
+        ls = rng.randn(rows, T).astype(np.float32)
+        if negative:
+            ls[3] = -np.abs(ls[3])
+        fpb = (fpb0 + rng.randint(-spread, spread + 1, size=(rows, T if tv else 1)))
+        ls_d = torch.from_numpy(ls).to(device)
+        fpb_d = torch.from_numpy(fpb.astype(np.float32)).to(device)
+        poison_all(torch, [(rows, T), (rows, T)], device)
+        got_b, got_c = beat_dp.beat_dp(ls_d, fpb_d, 100.0)
+        want_b, want_c = beat_dp.beat_dp_reference(ls_d, fpb_d, 100.0)
+        torch.cuda.synchronize()
+        ok = torch.equal(got_b, want_b) and torch.equal(got_c, want_c)
+        links = int((got_b >= 0).sum())
+        print(f"beat_dp kernel vs plain, {label}: {'bit-equal' if ok else 'DIFFERENT'} "
+              f"({links} backlinks set)")
+        if not ok:
+            raise AssertionError(f"beat_dp kernel vs plain, {label}: "
+                                 f"{int((got_b != want_b).sum())} backlinks and "
+                                 f"{int((got_c != want_c).sum())} scores differ")
+    print(f"beat_dp kernel vs plain: {len(cases)} cases bit-equal, each on NaN-filled memory")
+
+
+def viterbi_kernel_phase(torch, rng, device, pyin_trans) -> None:
+    """Phase 4i, kernel B: the Viterbi kernel against its plain version, bit for bit."""
+    from librosa_tpu_torch.ops import viterbi
+
+    lt870, lpi870 = pyin_trans
+
+    def random_case(rows, T, S, pruned):
+        lp = np.log(rng.rand(rows, T, S)).astype(np.float32)
+        lp[rng.rand(rows, T, S) < 0.05] = -np.inf  # empty states, as pYIN's float32 log gives
+        lt = np.log(rng.rand(S, S)).astype(np.float32)
+        if pruned:
+            lt[rng.rand(S, S) < 0.3] = -np.inf
+        return lp, lt, np.log(np.full(S, 1.0 / S)).astype(np.float32)
+
+    def tie_case(rows, T, S):
+        lp = rng.randint(-3, 1, size=(rows, T, S)).astype(np.float32)
+        return lp, np.zeros((S, S), np.float32), np.zeros(S, np.float32)
+
+    cases = [("S 2, T 1, 16 rows", *random_case(16, 1, 2, False)),
+             ("S 2, T 8193, 16 rows", *random_case(16, 8193, 2, False)),
+             ("S 5, T 2, 16 rows", *random_case(16, 2, 5, True)),
+             ("S 5, T 216, 4 rows, exact ties everywhere", *tie_case(4, 216, 5)),
+             ("S 870, T 216, 16 rows, pYIN's pruned transitions",
+              random_case(16, 216, 870, False)[0], lt870, lpi870),
+             ("S 870, T 8193, 2 rows, pYIN's pruned transitions",
+              random_case(2, 8193, 870, False)[0], lt870, lpi870),
+             ("S 1027, T 216, 3 rows, a third of the transitions -inf",
+              *random_case(3, 216, 1027, True)),
+             ("S 1027, T 8193, 1 row, a third of the transitions -inf",
+              *random_case(1, 8193, 1027, True)),
+             ("S 870, T 216, 2 rows, exact ties everywhere", *tie_case(2, 216, 870))]
+    for label, lp, lt, lpi in cases:
+        lp_d, lt_d, lpi_d = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                             for a in (lp, lt, lpi))
+        rows, T, S = lp.shape
+        poison_all(torch, [(rows, T), (rows,)], device)
+        got_s, got_p = viterbi.viterbi_decode(lp_d, lt_d, lpi_d)
+        want_s, want_p = viterbi.viterbi_reference(lp_d, lt_d, lpi_d)
+        torch.cuda.synchronize()
+        ok = torch.equal(got_s, want_s) and torch.equal(got_p, want_p)
+        print(f"viterbi kernel vs plain, {label}: {'bit-equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            raise AssertionError(f"viterbi kernel vs plain, {label}: "
+                                 f"{int((got_s != want_s).sum())} states differ, logp "
+                                 f"{got_p.tolist()[:4]} vs {want_p.tolist()[:4]}")
+    print(f"viterbi kernel vs plain: {len(cases)} cases bit-equal, each on NaN-filled memory")
+
+
+def dp_candidates(fpb: np.ndarray, T: int, window: int = 1024) -> int:
+    """Candidates the beat DP scores on these rows: d with round(fpb/2) <= d <= min(2 fpb, i, 1024)."""
+    i = np.arange(T)[None, :]
+    lo = np.maximum(np.round(fpb / 2), 1)
+    hi = np.minimum(np.minimum(np.floor(2 * fpb), i), window)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def config5_phase(torch, L, device) -> dict:
+    """Phase 4i: config 5 (entry.onset_beat_pyin) driven, checked against the port's float64 CPU
+    run, bench.py's 1-D shapes, the two kernels at the path's shapes, and the times."""
+    from librosa_tpu_torch import beat
+    from librosa_tpu_torch.core import pitch
+    from librosa_tpu_torch.entry import onset_beat_pyin
+    from librosa_tpu_torch.ops import beat_dp, db_scale, fused_stft, median, ola_norm, viterbi
+
+    rng = np.random.RandomState(5)
+    key = (float(SR), PYIN5["fmin"], PYIN5["fmax"], 512, 100, (2.0, 18.0), 0.1, 35.92, 0.01,
+           1e-4)
+    _, _, log_trans, log_p_init = pitch._pyin_tables(*key)
+    lt = torch.from_numpy(log_trans.astype(np.float32)).to(device)
+    lpi = torch.from_numpy(log_p_init.astype(np.float32)).to(device)
+    print(f"pyin at fmin {PYIN5['fmin']}, fmax {PYIN5['fmax']}: {lt.shape[0]} states, "
+          f"{int(torch.isinf(lt).sum())} of {lt.numel()} transitions pruned to -inf")
+    beat_dp_kernel_phase(torch, rng, device)
+    viterbi_kernel_phase(torch, rng, device, (lt.cpu().numpy(), lpi.cpu().numpy()))
+
+    counters = (fused_stft, db_scale, ola_norm, median, beat_dp, viterbi)
+    names = ("stft_mel", "db_scale", "ola_norm", "median_filter", "beat_dp", "viterbi")
+
+    def zero():
+        for mod in counters:
+            mod.launches = 0
+
+    def read():
+        return {n: mod.launches for n, mod in zip(names, counters)}
+
+    y = config5_signal(torch, MAIN_SHAPE, 5, device)
+    forward, _ = onset_beat_pyin()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    zero()
+    t0 = time.perf_counter()
+    env, tempo, beats, (f0, vflag, vprob) = forward(y)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    rows, n_frames = MAIN_SHAPE[0], 1 + MAIN_SHAPE[1] // 512
+    print(f"onset_beat_pyin: y {tuple(y.shape)} -> envelope {tuple(env.shape)}, tempo "
+          f"{tempo.shape}, beats {beats.shape}, f0 {tuple(f0.shape)}; launches {counts}; first "
+          f"call {first_s:.3f} s; peak memory {peak_bytes} bytes, {peak_bytes - base_bytes} "
+          f"above the {base_bytes} held before")
+    want = {"stft_mel": 1, "db_scale": 1, "ola_norm": 0, "median_filter": 0, "beat_dp": 1,
+            "viterbi": 1}
+    if counts != want:
+        raise AssertionError(f"onset_beat_pyin launched {counts}, expected {want}")
+    for name, t in (("envelope", env), ("f0", f0), ("voiced_flag", vflag),
+                    ("voiced_prob", vprob)):
+        if tuple(t.shape) != (rows, n_frames):
+            raise AssertionError(f"onset_beat_pyin {name} shape {tuple(t.shape)}")
+    if tempo.shape != (rows, 1) or beats.shape != (rows, n_frames) or beats.dtype != bool:
+        raise AssertionError(f"onset_beat_pyin tempo {tempo.shape}, beats {beats.shape}")
+    if not (bool(torch.isfinite(env).all()) and bool(torch.isfinite(f0[vflag]).all())
+            and bool(torch.isnan(f0[~vflag]).all()) and bool((vprob >= 0).all())
+            and bool((vprob <= 1).all())):
+        raise AssertionError("onset_beat_pyin: non-finite or out-of-range values")
+    print(f"onset_beat_pyin: tempo per track {np.round(tempo.ravel(), 2).tolist()} BPM; beats "
+          f"per track {beats.sum(-1).tolist()}; voiced share "
+          f"{float(vflag.float().mean()):.4f}")
+
+    # tracks 0 and 1 against the port's own float64 run of the same forward on the CPU
+    t0 = time.perf_counter()
+    env64, tempo64, beats64, (f064, vflag64, _) = forward(y[:2].cpu().double())
+    cpu_s = time.perf_counter() - t0
+    env_snr = [snr_db(env[r].cpu().numpy(), env64[r].numpy()) for r in range(2)]
+    tempo_equal = bool(np.array_equal(tempo[:2], tempo64))
+    beats_ok = [beats_agree(np.flatnonzero(beats[r]), np.flatnonzero(beats64[r]))
+                for r in range(2)]
+    v32, v64 = vflag[:2].cpu().numpy(), vflag64.numpy()
+    voiced_equal = float((v32 == v64).mean())
+    both = v32 & v64
+    f0_snr = snr_db(f0[:2].cpu().numpy()[both], f064.numpy()[both])
+    print(f"onset_beat_pyin tracks 0 and 1 vs the float64 CPU run ({cpu_s:.1f} s): envelope "
+          f"{env_snr[0]:.1f} / {env_snr[1]:.1f} dB (floor {MIN_ENV_SNR_DB}), tempo "
+          f"{'equal' if tempo_equal else 'DIFFERENT'}, beats within {BEAT_TOL_FRAMES} frame "
+          f"{beats_ok}, voicing equal in {voiced_equal:.5f} of frames (floor "
+          f"{MIN_VOICED_EQUAL}), f0 where both voiced ({int(both.sum())} frames) {f0_snr:.1f} dB "
+          f"(floor {MIN_F0_SNR_DB})")
+    if not (min(env_snr) >= MIN_ENV_SNR_DB and tempo_equal and all(beats_ok)
+            and voiced_equal >= MIN_VOICED_EQUAL and f0_snr >= MIN_F0_SNR_DB):
+        raise AssertionError("onset_beat_pyin disagrees with its float64 CPU run")
+
+    # bench.py's 1-D shapes: beat_track of 30 s (the host DP), pyin of 5 s (the Viterbi kernel)
+    y30, y5 = y[2, :30 * SR], y[3, :5 * SR]
+    zero()
+    tempo30, beats30 = L.beat.beat_track(y=y30, sr=SR)
+    f0_5, v5, _ = L.pyin(y5, sr=SR, **PYIN5)
+    torch.cuda.synchronize()
+    bench_counts = read()
+    tempo30_64, beats30_64 = L.beat.beat_track(y=y30.cpu().double(), sr=SR)
+    f0_5_64, v5_64, _ = L.pyin(y5.cpu().double(), sr=SR, **PYIN5)
+    both5 = (v5.cpu() & v5_64).numpy()
+    v5_equal = float((v5.cpu() == v5_64).float().mean())
+    f0_5_snr = snr_db(f0_5.cpu().numpy()[both5], f0_5_64.numpy()[both5])
+    beat30_s = best_s(lambda: L.beat.beat_track(y=y30, sr=SR))
+    pyin5_s = best_s(lambda: (L.pyin(y5, sr=SR, **PYIN5)[0].sum().item()))
+    print(f"bench.py's 1-D shapes: beat_track of 30 s {1e3 * beat30_s:.4f} ms (tempo "
+          f"{float(np.atleast_1d(tempo30)[0]):.2f}, {len(beats30)} beats, host DP), pyin of 5 s "
+          f"{1e3 * pyin5_s:.4f} ms (host clock, best of 3); launches {bench_counts}; vs float64: "
+          f"beats within a frame {beats_agree(beats30, beats30_64)}, tempo "
+          f"{'equal' if np.array_equal(tempo30, tempo30_64) else 'DIFFERENT'}, voicing equal "
+          f"{v5_equal:.5f}, f0 {f0_5_snr:.1f} dB")
+    if bench_counts != {"stft_mel": 1, "db_scale": 1, "ola_norm": 0, "median_filter": 0,
+                        "beat_dp": 0, "viterbi": 1}:
+        raise AssertionError(f"bench.py's 1-D shapes launched {bench_counts}")
+    if not (beats_agree(beats30, beats30_64) and np.array_equal(tempo30, tempo30_64)
+            and v5_equal >= MIN_VOICED_EQUAL and f0_5_snr >= MIN_F0_SNR_DB):
+        raise AssertionError("bench.py's 1-D shapes disagree with their float64 CPU runs")
+
+    # times of the path and its parts
+    e2e_ms = time_ms(torch, lambda: forward(y), 1, groups=2)
+    onset_ms = time_ms(torch, lambda: L.onset.onset_strength(y=y, sr=SR, aggregate=np.median), 3)
+    tempo_ms = time_ms(torch, lambda: L.feature.tempo(onset_envelope=env, sr=SR), 3)
+    track_ms = time_ms(torch, lambda: L.beat.beat_track(onset_envelope=env, sr=SR, bpm=tempo,
+                                                        sparse=False), 1, groups=2)
+    fpb = np.round(SR / 512 * 60.0 / tempo)
+    ls = beat._local_score(env.cpu().numpy(), fpb)
+    ls_d = torch.from_numpy(ls.astype(np.float32)).to(device)
+    fpb_d = torch.from_numpy(fpb.astype(np.float32)).to(device)
+    dp_got = beat_dp.beat_dp(ls_d, fpb_d, 100.0)
+    dp_want = beat_dp.beat_dp_reference(ls_d, fpb_d, 100.0)
+    dp_equal = torch.equal(dp_got[0], dp_want[0]) and torch.equal(dp_got[1], dp_want[1])
+    dp_err = float((dp_got[1] - dp_want[1]).abs().max())
+    dp_ms = time_ms(torch, lambda: beat_dp.beat_dp(ls_d, fpb_d, 100.0), 10)
+    dp_plain_ms = time_ms(torch, lambda: beat_dp.beat_dp_reference(ls_d, fpb_d, 100.0), 1,
+                          groups=1)
+    yin_kw = dict(sr=SR, fmin=PYIN5["fmin"], fmax=PYIN5["fmax"], frame_length=2048,
+                  hop_length=512, center=True, pad_mode="constant")
+    yin_ms = time_ms(torch, lambda: pitch._yin_frames(y, **yin_kw), 3)
+    thresholds, beta_probs, _, _ = pitch._pyin_tables(*key)
+    obs_kw = dict(yin_kw, thresholds=thresholds, beta_probs=beta_probs, n_pitch_bins=435,
+                  n_bins_per_semitone=10, boltzmann_parameter=2.0, no_trough_prob=0.01)
+    observe_ms = time_ms(torch, lambda: pitch._pyin_observe(y, **obs_kw), 2)
+    obs_full, _ = pitch._pyin_observe(y, **obs_kw)
+    lp = pitch._pyin_log_prob(obs_full).transpose(-2, -1).contiguous()
+    del obs_full
+    vit_got = viterbi.viterbi_decode(lp, lt, lpi)
+    vit_want = viterbi.viterbi_reference(lp, lt, lpi)
+    vit_equal = torch.equal(vit_got[0], vit_want[0]) and torch.equal(vit_got[1], vit_want[1])
+    vit_ms = time_ms(torch, lambda: viterbi.viterbi_decode(lp, lt, lpi), 1, groups=3)
+    vit_plain_ms = time_ms(torch, lambda: viterbi.viterbi_reference(lp, lt, lpi), 1, groups=1)
+    pyin_ms = time_ms(torch, lambda: L.pyin(y, sr=SR, **PYIN5), 1, groups=2)
+    print(f"at the path's shapes: beat_dp kernel vs plain {'bit-equal' if dp_equal else 'DIFFERENT'}"
+          f" on {tuple(ls_d.shape)}; viterbi kernel vs plain "
+          f"{'bit-equal' if vit_equal else 'DIFFERENT'} on {tuple(lp.shape)}")
+    if not (dp_equal and vit_equal):
+        raise AssertionError("a config 5 kernel disagrees with its plain version at the path's "
+                             "shapes")
+
+    # bounds: bytes (each input read once, each output written once) and operations
+    T, S = n_frames, lp.shape[-1]
+    dp_bytes_ms = 1e3 * (4 * ls_d.numel() + 4 * fpb_d.numel() + 8 * ls_d.numel()) / H100_HBM_BYTES_S
+    n_cand = dp_candidates(fpb, T)
+    dp_ops_ms = 1e3 * 5 * n_cand / H100_F32_FLOP_S  # sub, mul, mul, sub, compare a candidate
+    # the chain of T dependent frames: the probe runs only each step's ring read, warp
+    # reduction and ring write, on as many rows, so its measured time is the least the chain takes
+    dp_chain_ms = beat_dp.chain_floor_ms(ls_d.shape[0], T, device)
+    dp_terms = {"bytes": dp_bytes_ms, "operations": dp_ops_ms, "dependence chain": dp_chain_ms}
+    dp_binding = max(dp_terms, key=dp_terms.get)
+    vit_bytes_ms = 1e3 * (4 * lp.numel() + 4 * S * S + 4 * S + 4 * rows * T + 4 * rows) \
+        / H100_HBM_BYTES_S
+    vit_ops_ms = 1e3 * 2 * rows * (T - 1) * S * S / H100_F32_FLOP_S  # an add and a compare a pair
+    print(f"config 5 end to end {e2e_ms:.4f} ms on {MAIN_SHAPE} "
+          f"({MAIN_SHAPE[0] * MAIN_SHAPE[1] / (e2e_ms / 1e3):.6e} samples/s); alone: "
+          f"onset_strength (median) {onset_ms:.4f} ms, tempo {tempo_ms:.4f} ms, beat_track from "
+          f"the envelope {track_ms:.4f} ms, pyin {pyin_ms:.4f} ms (yin frames {yin_ms:.4f} ms, "
+          f"observation {observe_ms:.4f} ms, Viterbi kernel {vit_ms:.4f} ms)")
+    print(f"beat_dp kernel {dp_ms:.4f} ms, plain {dp_plain_ms:.4f} ms, bound "
+          f"{max(dp_bytes_ms, dp_ops_ms):.6f} ms by bytes and operations (bytes "
+          f"{dp_bytes_ms:.6f}, operations {dp_ops_ms:.6f}: {n_cand} candidates); a chain of {T} "
+          f"dependent steps, {1e6 * dp_ms / T:.2f} ns a step, whose floor (the chain probe, "
+          f"measured) is {dp_chain_ms:.4f} ms, {1e6 * dp_chain_ms / T:.2f} ns a step; the "
+          f"{dp_binding} binds: the kernel runs at {dp_ms / dp_terms[dp_binding]:.2f}x that bound")
+    print(f"viterbi kernel {vit_ms:.4f} ms, plain {vit_plain_ms:.4f} ms, bound "
+          f"{max(vit_bytes_ms, vit_ops_ms):.4f} ms (bytes {vit_bytes_ms:.4f}, operations "
+          f"{vit_ops_ms:.4f}: {rows * (T - 1) * S * S:.4e} add-and-compare pairs)")
+    paths = {"mel_db_mfcc": 0, "feature_stack": 0, "reconstruction": 0, "cqt_hpss": 0,
+             "config1_files": 0}
+    dp_entry = {
+        "name": "beat_dp", "route": "cuda", "source": "librosa_tpu_torch/csrc/beat_dp.cu",
+        "replaces": "librosa_tpu/beat.py:35 _beat_dp_scan (an XLA program: no Pallas kernel "
+                    "computes the beat DP)",
+        "launches": counts["beat_dp"] + bench_counts["beat_dp"],
+        "launches_by_path": {**paths, "onset_beat_pyin": counts["beat_dp"],
+                             "config5_bench_1d": bench_counts["beat_dp"]},
+        "max_abs_err": dp_err, "ms": dp_ms, "kernel_ms": dp_ms, "plain_ms": dp_plain_ms,
+        "bound_ms": max(dp_bytes_ms, dp_ops_ms),
+        "bound_by": "bytes" if dp_bytes_ms >= dp_ops_ms else "operations",
+        "library_ms": None, "dependent_steps": T, "ns_per_step": 1e6 * dp_ms / T,
+        "chain_bound_ms": dp_chain_ms, "binding_term": dp_binding,
+    }
+    vit_entry = {
+        "name": "viterbi", "route": "cuda", "source": "librosa_tpu_torch/csrc/viterbi.cu",
+        "replaces": "librosa_tpu/sequence.py:609 _viterbi_scan (an XLA program: no Pallas kernel "
+                    "computes the Viterbi scan)",
+        "launches": counts["viterbi"] + bench_counts["viterbi"],
+        "launches_by_path": {**paths, "onset_beat_pyin": counts["viterbi"],
+                             "config5_bench_1d": bench_counts["viterbi"]},
+        "max_abs_err": float((vit_got[1] - vit_want[1]).abs().max()), "ms": vit_ms,
+        "kernel_ms": vit_ms, "plain_ms": vit_plain_ms,
+        "bound_ms": max(vit_bytes_ms, vit_ops_ms),
+        "bound_by": "bytes" if vit_bytes_ms >= vit_ops_ms else "operations",
+        "library_ms": None, "states": S,
+    }
+    return {"launches": counts, "bench_launches": bench_counts, "beat_dp": dp_entry,
+            "viterbi": vit_entry, "e2e_ms": e2e_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1897,18 +2266,22 @@ def main() -> int:
     median_kernel_phase(torch, L, rng, device)
     config4 = cqt_hpss_phase(torch, L, device, y, win)
     from_files = files_phase(torch, L, device, smi)
+    config5 = config5_phase(torch, L, device)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
         "source": "librosa_tpu_torch/csrc/stft_mel.cu",
         "replaces": "librosa_tpu/ops/pallas_stft.py:487",
         "launches": (main_launches + stack["launches"]["stft_mel"]
-                     + recon["launches"]["stft_mel"] + from_files["launches"]["stft_mel"]),
+                     + recon["launches"]["stft_mel"] + from_files["launches"]["stft_mel"]
+                     + config5["launches"]["stft_mel"] + config5["bench_launches"]["stft_mel"]),
         "launches_by_path": {"mel_db_mfcc": main_launches,
                              "feature_stack": stack["launches"]["stft_mel"],
                              "reconstruction": recon["launches"]["stft_mel"],
                              "cqt_hpss": config4["launches"]["stft_mel"],
-                             "config1_files": from_files["launches"]["stft_mel"]},
+                             "config1_files": from_files["launches"]["stft_mel"],
+                             "onset_beat_pyin": config5["launches"]["stft_mel"],
+                             "config5_bench_1d": config5["bench_launches"]["stft_mel"]},
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -1921,12 +2294,16 @@ def main() -> int:
         "reconstruction_shape": recon["stft_mel"],
     }
     db_entry["launches"] = (main_db_launches + stack["launches"]["db_scale"]
-                            + from_files["launches"]["db_scale"])
+                            + from_files["launches"]["db_scale"]
+                            + config5["launches"]["db_scale"]
+                            + config5["bench_launches"]["db_scale"])
     db_entry["launches_by_path"] = {"mel_db_mfcc": main_db_launches,
                                     "feature_stack": stack["launches"]["db_scale"],
                                     "reconstruction": recon["launches"]["db_scale"],
                                     "cqt_hpss": config4["launches"]["db_scale"],
-                                    "config1_files": from_files["launches"]["db_scale"]}
+                                    "config1_files": from_files["launches"]["db_scale"],
+                                    "onset_beat_pyin": config5["launches"]["db_scale"],
+                                    "config5_bench_1d": config5["bench_launches"]["db_scale"]}
     diag_entries = staged_diagnostics(torch, device, y, kernel_ms)
     ola_entry = recon["ola_norm"]
     ola_entry["launches"] += config4["launches"]["ola_norm"]
@@ -1936,8 +2313,12 @@ def main() -> int:
     median_entry = config4["median_filter"]
     median_entry["launches"] += from_files["launches"]["median_filter"]
     median_entry["launches_by_path"]["config1_files"] = from_files["launches"]["median_filter"]
+    for entry, kernel in ((ola_entry, "ola_norm"), (median_entry, "median_filter")):
+        entry["launches"] += config5["launches"][kernel] + config5["bench_launches"][kernel]
+        entry["launches_by_path"]["onset_beat_pyin"] = config5["launches"][kernel]
+        entry["launches_by_path"]["config5_bench_1d"] = config5["bench_launches"][kernel]
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,
-                                  *diag_entries]}))
+                                  config5["beat_dp"], config5["viterbi"], *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

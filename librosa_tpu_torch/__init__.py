@@ -3,10 +3,12 @@
 The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
 (flat ``load``, ``stream``, ``to_mono``, ``get_duration``, ``stft``, ``istft``, ``griffinlim``, ``magphase``, ``power_to_db``,
 ``amplitude_to_db`` and their inverses, ``perceptual_weighting``, ``resample``,
-``piptrack``, ``pitch_tuning``, ``estimate_tuning``, ``tone``, ``chirp``,
-``clicks``; ``feature.melspectrogram``,
+``piptrack``, ``pitch_tuning``, ``estimate_tuning``, ``yin``, ``pyin``,
+``salience``, ``interp_harmonics``, ``f0_harmonics``, ``tone``, ``chirp``,
+``clicks``; ``onset``, ``beat`` and ``sequence``; ``feature.melspectrogram``,
 ``feature.mfcc``, ``feature.chroma_stft``, ``feature.spectral_centroid``,
-``feature.spectral_rolloff``, ``feature.rms``; ``filters.mel``,
+``feature.spectral_rolloff``, ``feature.rms``, the tempograms and
+``feature.tempo``; ``filters.mel``,
 ``filters.chroma``, ``filters.get_window``, ``filters.window_sumsquare``;
 ``util.normalize`` and friends)
 and the same array layout: time on the last axis, bins on axis -2, any
@@ -18,8 +20,10 @@ Inputs that are not tensors go to the default device, ``cuda`` unless
 plain spectrogram) runs as one hand-written CUDA kernel
 (``csrc/stft_mel.cu``), decibel scaling as another (``csrc/db_scale.cu``)
 and the synthesis step of the inverse STFT as a third
-(``csrc/ola_norm.cu``); on the CPU each function runs its plain PyTorch
-version.
+(``csrc/ola_norm.cu``); the beat tracker's dynamic program over a batch of
+envelopes (``csrc/beat_dp.cu``) and the Viterbi decoder behind ``pyin`` and
+``sequence.viterbi`` (``csrc/viterbi.cu``) are two more. On the CPU each
+function runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ._device import get_device, set_device  # noqa: F401
 from .core.audio import *  # noqa: F401,F403
 from .core.constantq import *  # noqa: F401,F403
 from .core.convert import *  # noqa: F401,F403
+from .core.harmonic import f0_harmonics, interp_harmonics, salience  # noqa: F401
 from .core.intervals import *  # noqa: F401,F403
 from .core.notation import *  # noqa: F401,F403
 from .core.pitch import *  # noqa: F401,F403
@@ -36,4 +41,5 @@ from .util.exceptions import LibrosaError, ParameterError  # noqa: F401
 from .util.files import cite, ex, example  # noqa: F401
 from .version import show_versions, version as __version__  # noqa: F401
 
-from . import core, decompose, effects, feature, filters, io, ops, util  # noqa: F401
+from . import (beat, core, decompose, effects, feature, filters, io, onset, ops,  # noqa: F401
+               sequence, util)

@@ -1,14 +1,18 @@
-"""Pitch tracking by spectral peaks and the tuning estimate built on it.
+"""Pitch tracking by spectral peaks, the tuning estimate built on it, and YIN and pYIN.
 
-Everything runs on the spectrogram's device: the peak picking, the median
-of the voiced magnitudes and the histogram of tuning deviations. An estimate
-reads back the count of peaks and then the winning cell, nothing larger, and
+Everything runs on the input's device: the peak picking, the median of the
+voiced magnitudes and the histogram of tuning deviations. An estimate reads
+back the count of peaks and then the winning cell, nothing larger, and
 ``piptrack`` reads back nothing: a callable ``ref`` is applied where the
-spectrogram lies.
+spectrogram lies. ``yin`` and ``pyin`` frame the signal and compute the
+cumulative mean normalised difference by FFT autocorrelation for every frame
+at once; ``pyin`` decodes its pitch and voicing HMM with the Viterbi kernel
+(``csrc/viterbi.cu``) on the card.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Any, Callable, Optional, Tuple, Union
 
@@ -18,11 +22,12 @@ import torch
 from .._device import as_tensor, device_table
 from ..ops.db_scale import is_max_ref
 from ..util.exceptions import ParameterError
-from ..util.utils import _device_reduction, expand_to, localmax
+from ..util.utils import _device_reduction, expand_to, frame, localmax, localmin, pad_last, tiny
+from .audio import autocorrelate
 from .convert import fft_frequencies
 from .spectrum import _spectrogram
 
-__all__ = ["estimate_tuning", "pitch_tuning", "piptrack"]
+__all__ = ["estimate_tuning", "pitch_tuning", "piptrack", "yin", "pyin"]
 
 
 def _parabolic_interpolation(x: torch.Tensor, *, axis: int = -2) -> torch.Tensor:
@@ -220,3 +225,219 @@ def estimate_tuning(
         median = (ranked[(count - 1) // 2] + ranked[count // 2]) / 2
         pitch = torch.where(mag >= median, pitch, 0.0)
     return pitch_tuning(pitch, resolution=resolution, bins_per_octave=bins_per_octave)
+
+
+def _cumulative_mean_normalized_difference(y_frames: torch.Tensor, min_period: int,
+                                           max_period: int) -> torch.Tensor:
+    """YIN's difference function over lags ``min_period .. max_period``, each over its running mean.
+
+    Frames are ``(..., frame_length, n_frames)``. The difference at lag k is
+    ``2 (r(0) - r(k))`` less the energy of the first k samples, the first
+    sample's energy left out (as in librosa).
+    """
+    autocorr = autocorrelate(y_frames, max_size=max_period + 1, axis=-2)
+    edge_power = y_frames.square().cumsum(dim=-2)
+    edge_power[..., 0, :] = 0.0
+    difference = (2.0 * (autocorr[..., :1, :] - autocorr[..., 1:max_period + 1, :])
+                  - edge_power[..., :max_period, :])
+    lags = torch.arange(1, max_period + 1, dtype=difference.dtype, device=difference.device)
+    running_mean = difference.cumsum(dim=-2) / lags.reshape(-1, 1)
+    band = slice(min_period - 1, max_period)
+    return difference[..., band, :] / (running_mean[..., band, :] + tiny(running_mean))
+
+
+def _check_yin_params(*, sr: float, fmax: float, fmin: float, frame_length: int,
+                      win_length: Optional[int] = None) -> None:
+    if fmin is None or fmax is None:
+        raise ParameterError('both "fmin" and "fmax" must be provided')
+    if fmin <= 0:
+        raise ParameterError(f"fmin={fmin} must be strictly positive")
+    if fmax <= fmin:
+        raise ParameterError(f"fmax={fmax} must be greater than fmin={fmin}")
+    if fmax > sr / 2:
+        raise ParameterError(f"fmax={fmax} cannot exceed Nyquist frequency {sr/2}")
+    if frame_length < 1:
+        raise ParameterError(f"frame_length={frame_length} must be a positive integer")
+    if win_length is not None and win_length >= frame_length:
+        raise ParameterError(f"win_length={win_length} must be less than frame_length={frame_length}")
+    if sr / fmin >= frame_length:
+        raise ParameterError(f"frame_length={frame_length} is too small for fmin={fmin} at sr={sr}")
+
+
+def _yin_frames(y: Any, *, sr: float, fmin: float, fmax: float, frame_length: int,
+                hop_length: int, center: bool, pad_mode: str):
+    """Frames of ``y`` -> (difference function, parabolic shifts, troughs, min_period)."""
+    y = as_tensor(y)
+    if center:
+        y = pad_last(y, frame_length // 2, frame_length // 2, mode=pad_mode)
+    y_frames = frame(y, frame_length=frame_length, hop_length=hop_length)
+    min_period = int(np.floor(sr / fmax))
+    max_period = min(int(np.ceil(sr / fmin)), frame_length - 1)
+    yin_frames = _cumulative_mean_normalized_difference(y_frames, min_period, max_period)
+    shifts = _parabolic_interpolation(yin_frames)
+    is_trough = localmin(yin_frames, axis=-2)
+    is_trough[..., 0, :] = yin_frames[..., 0, :] < yin_frames[..., 1, :]
+    return yin_frames, shifts, is_trough, min_period
+
+
+def yin(y: Any, *, fmin: float, fmax: float, sr: float = 22050, frame_length: int = 2048,
+        win_length: Optional[int] = None, hop_length: Optional[int] = None,
+        trough_threshold: float = 0.1, center: bool = True,
+        pad_mode: str = "constant") -> torch.Tensor:
+    """Fundamental frequency ``(..., n_frames)`` by YIN (de Cheveigne and Kawahara 2002).
+
+    Per frame, the first trough of the cumulative mean normalised difference
+    below ``trough_threshold`` (else its global minimum), refined by a
+    parabola. ``hop_length`` defaults to ``frame_length // 4``; ``center``
+    pads ``frame_length // 2`` a side in ``pad_mode``.
+    """
+    _check_yin_params(sr=sr, fmax=fmax, fmin=fmin, frame_length=frame_length,
+                      win_length=win_length)
+    hop_length = frame_length // 4 if hop_length is None else hop_length
+    yin_frames, shifts, is_trough, min_period = _yin_frames(
+        y, sr=sr, fmin=fmin, fmax=fmax, frame_length=frame_length, hop_length=hop_length,
+        center=center, pad_mode=pad_mode)
+    below = is_trough & (yin_frames < trough_threshold)
+    period = below.to(torch.uint8).argmax(dim=-2, keepdim=True)  # the first trough below
+    period = torch.where(below.any(dim=-2, keepdim=True), period,
+                         yin_frames.argmin(dim=-2, keepdim=True))
+    return sr / (min_period + period + shifts.gather(-2, period))[..., 0, :]
+
+
+@functools.lru_cache(maxsize=16)
+def _pyin_tables(sr: float, fmin: float, fmax: float, hop_length: int, n_thresholds: int,
+                 beta_parameters: Tuple[float, float], resolution: float,
+                 max_transition_rate: float, switch_prob: float,
+                 transition_min_prob: Optional[float]):
+    """pYIN's host constants in float64: thresholds, beta masses, log transition, log initial."""
+    import scipy.stats
+
+    from ..sequence import _log_transition, transition_local, transition_loop
+
+    thresholds = np.linspace(0, 1, n_thresholds + 1)
+    beta_probs = np.diff(scipy.stats.beta.cdf(thresholds, beta_parameters[0],
+                                              beta_parameters[1]))
+    n_bins_per_semitone = int(np.ceil(1.0 / resolution))
+    n_pitch_bins = int(np.floor(12 * n_bins_per_semitone * np.log2(fmax / fmin))) + 1
+    max_semitones_per_frame = round(max_transition_rate * 12 * hop_length / sr)
+    width = max_semitones_per_frame * n_bins_per_semitone + 1
+    transition = np.kron(transition_loop(2, 1 - switch_prob),
+                         transition_local(n_pitch_bins, width, window="triangle", wrap=False))
+    eps = np.finfo(np.float64).tiny
+    log_trans = _log_transition(transition, eps, transition_min_prob)
+    log_p_init = np.log(np.full(2 * n_pitch_bins, 1 / (2 * n_pitch_bins)) + eps)
+    return thresholds, beta_probs, log_trans, log_p_init
+
+
+def _pyin_trough_probs(yin_frames: torch.Tensor, is_trough: torch.Tensor, thresholds: np.ndarray,
+                       beta_probs: np.ndarray, boltzmann_parameter: float,
+                       no_trough_prob: float) -> torch.Tensor:
+    """Prior mass of each period candidate ``(..., P, T)``, one threshold at a time.
+
+    For each threshold, the troughs below it share its beta mass by a
+    Boltzmann law over their order; where none is below, ``no_trough_prob``
+    of that mass goes to the lowest trough.
+    """
+    a = boltzmann_parameter
+    scale = float(1 - np.exp(-a))
+    yin_probs = torch.zeros_like(yin_frames)
+    empty_mass = torch.zeros_like(yin_frames[..., :1, :])
+    for k in range(len(thresholds) - 1):
+        below = is_trough & (yin_frames < float(thresholds[k + 1]))
+        rank = below.cumsum(dim=-2, dtype=torch.int32) - 1
+        n_below = below.sum(dim=-2, keepdim=True, dtype=torch.int32)
+        pmf = (torch.exp(-a * rank.to(yin_frames.dtype)) * scale
+               / (1 - torch.exp(-a * n_below.clamp_min(1).to(yin_frames.dtype))))
+        beta = float(beta_probs[k])
+        yin_probs += torch.where(below, pmf, 0.0) * beta
+        empty_mass += torch.where(n_below == 0, beta, 0.0)
+    lowest = torch.where(is_trough, yin_frames, float("inf")).argmin(dim=-2, keepdim=True)
+    empty_mass = torch.where(is_trough.any(dim=-2, keepdim=True), empty_mass, 0.0)
+    return yin_probs.scatter_add(-2, lowest, no_trough_prob * empty_mass)
+
+
+def pyin(y: Any, *, fmin: float, fmax: float, sr: float = 22050, frame_length: int = 2048,
+         win_length: Optional[int] = None, hop_length: Optional[int] = None,
+         n_thresholds: int = 100, beta_parameters: Tuple[float, float] = (2, 18),
+         boltzmann_parameter: float = 2, resolution: float = 0.1,
+         max_transition_rate: float = 35.92, switch_prob: float = 0.01,
+         no_trough_prob: float = 0.01, fill_na: Optional[float] = np.nan, center: bool = True,
+         pad_mode: str = "constant", transition_min_prob: Optional[float] = 1e-4,
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Probabilistic YIN (Mauch and Dixon 2014): ``(f0, voiced_flag, voiced_prob)``, each ``(..., n_frames)``.
+
+    Every trough of the difference function gets prior mass from
+    ``n_thresholds`` thresholds weighted by a beta law; the masses land in
+    pitch bins of ``resolution`` semitones, and an HMM over pitch bins times
+    voicing (pitch moves of at most ``max_transition_rate`` octaves a
+    second, voicing switches with ``switch_prob``, transitions below
+    ``transition_min_prob`` pruned) is decoded by Viterbi. Unvoiced frames
+    of ``f0`` hold ``fill_na`` (None: the decoded bin's frequency). Float64
+    input runs in float64, everything else in float32.
+    """
+    _check_yin_params(sr=sr, fmax=fmax, fmin=fmin, frame_length=frame_length,
+                      win_length=win_length)
+    hop_length = frame_length // 4 if hop_length is None else hop_length
+    y = as_tensor(y)
+    dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
+    key = (float(sr), float(fmin), float(fmax), int(hop_length), int(n_thresholds),
+           (float(beta_parameters[0]), float(beta_parameters[1])), float(resolution),
+           float(max_transition_rate), float(switch_prob),
+           None if transition_min_prob is None else float(transition_min_prob))
+    thresholds, beta_probs, log_trans, log_p_init = _pyin_tables(*key)
+    n_bins_per_semitone = int(np.ceil(1.0 / resolution))
+    n_pitch_bins = log_p_init.shape[0] // 2
+    obs_full, voiced_prob = _pyin_observe(
+        y.to(dtype), sr=sr, fmin=fmin, fmax=fmax, frame_length=frame_length,
+        hop_length=hop_length, center=center, pad_mode=pad_mode, thresholds=thresholds,
+        beta_probs=beta_probs, n_pitch_bins=n_pitch_bins,
+        n_bins_per_semitone=n_bins_per_semitone, boltzmann_parameter=float(boltzmann_parameter),
+        no_trough_prob=float(no_trough_prob))
+
+    from ..sequence import _decode
+
+    lt = device_table(("pyin_log_trans", key), lambda: log_trans, y.device, dtype)
+    lpi = device_table(("pyin_log_p_init", key), lambda: log_p_init, y.device, dtype)
+    states, _ = _decode(_pyin_log_prob(obs_full), lt, lpi)
+    freqs = fmin * 2.0 ** (torch.arange(n_pitch_bins, dtype=dtype, device=y.device)
+                           / (12 * n_bins_per_semitone))
+    states = states.long()
+    f0 = freqs[states % n_pitch_bins]
+    voiced_flag = states < n_pitch_bins
+    if fill_na is not None:
+        f0 = torch.where(voiced_flag, f0, float(fill_na))
+    return f0, voiced_flag, voiced_prob
+
+
+def _pyin_observe(y: torch.Tensor, *, sr: float, fmin: float, fmax: float, frame_length: int,
+                  hop_length: int, center: bool, pad_mode: str, thresholds: np.ndarray,
+                  beta_probs: np.ndarray, n_pitch_bins: int, n_bins_per_semitone: int,
+                  boltzmann_parameter: float,
+                  no_trough_prob: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pYIN's frame-wise half: observation probabilities ``(..., 2 n_pitch_bins, T)`` and voicing ``(..., T)``.
+
+    Each period candidate's prior mass lands in the pitch bin of its refined
+    frequency (candidates above ``fmax`` in a bin that is dropped); the
+    unvoiced states share what the voiced ones leave.
+    """
+    yin_frames, shifts, is_trough, min_period = _yin_frames(
+        y, sr=sr, fmin=fmin, fmax=fmax, frame_length=frame_length, hop_length=hop_length,
+        center=center, pad_mode=pad_mode)
+    yin_probs = _pyin_trough_probs(yin_frames, is_trough, thresholds, beta_probs,
+                                   boltzmann_parameter, no_trough_prob)
+    periods = torch.arange(min_period, min_period + yin_frames.shape[-2], dtype=y.dtype,
+                           device=y.device)
+    f0_cands = sr / (periods.reshape(-1, 1) + shifts)
+    bins = torch.round(12 * n_bins_per_semitone * torch.log2(f0_cands / fmin))
+    bins = bins.clamp(0, n_pitch_bins).to(torch.int64)
+    observed = torch.zeros((*yin_probs.shape[:-2], n_pitch_bins + 1, yin_probs.shape[-1]),
+                           dtype=y.dtype, device=y.device)
+    observed = observed.scatter_add(-2, bins, yin_probs)[..., :n_pitch_bins, :]
+    voiced_prob = observed.sum(dim=-2, keepdim=True).clamp(0, 1)
+    unvoiced = ((1 - voiced_prob) / n_pitch_bins).expand_as(observed)
+    return torch.cat([observed, unvoiced], dim=-2), voiced_prob[..., 0, :]
+
+
+def _pyin_log_prob(obs_full: torch.Tensor) -> torch.Tensor:
+    """``log(obs + tiny)`` with float64's tiny, which is 0 in float32: empty states get -inf there."""
+    return torch.log(obs_full + float(np.finfo(np.float64).tiny))

@@ -4,9 +4,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import effects, feature
+from . import beat, effects, feature, onset
 from .core.audio import resample
 from .core.constantq import cqt
+from .core.pitch import pyin
 from .core.spectrum import _spectrogram, griffinlim, power_to_db
 
 SR = 22050
@@ -82,5 +83,26 @@ def cqt_hpss():
         C = cqt(y, sr=SR, hop_length=512, n_bins=84, bins_per_octave=12, res_type="polyphase")
         y_harm, y_perc = effects.hpss(y)
         return C, y_harm, y_perc
+
+    return forward, (np.zeros((2, SR * 4), dtype=np.float32),)
+
+
+def onset_beat_pyin():
+    """Return ``(forward, example_args)`` for onset strength, tempo, beats and pYIN of a batch of tracks.
+
+    ``forward(y)`` gives ``(onset_envelope, tempo, beats, (f0, voiced_flag,
+    voiced_prob))`` of ``y`` ``(..., n)``: the onset envelope (median over
+    128 mels of the dB flux, n_fft 2048, hop 512, as ``beat.beat_track``
+    computes it from ``y``), the tempo per track (numpy), the beat mask of
+    ``beat.beat_track(..., sparse=False)`` (numpy) and ``pyin(y, fmin=65,
+    fmax=800)``. On the card the stft_mel and db_scale kernels run once
+    each, the beat DP kernel once and the Viterbi kernel once.
+    """
+    def forward(y):
+        env = onset.onset_strength(y=y, sr=SR, hop_length=512, aggregate=np.median)
+        tempo = feature.tempo(onset_envelope=env, sr=SR, hop_length=512)
+        _, beats = beat.beat_track(onset_envelope=env, sr=SR, hop_length=512, bpm=tempo,
+                                   sparse=False)
+        return env, tempo, beats, pyin(y, fmin=65, fmax=800, sr=SR)
 
     return forward, (np.zeros((2, SR * 4), dtype=np.float32),)

@@ -4,8 +4,8 @@ Each CUDA source under ``librosa_tpu_torch/csrc/`` (``SOURCES``) compiles
 with ``nvcc`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds) for ``sm_90a``; ``nvcc`` is found on
 ``PATH`` or under ``$CUDA_HOME/bin``. The host sources (``HOST_SOURCES``:
-the audio decoder) compile with ``g++`` and build on any machine, with no
-CUDA toolkit. Every library goes into ``librosa_tpu_torch/_build/`` under a
+the audio decoder and the one-envelope beat DP) compile with ``g++`` and
+build on any machine, with no CUDA toolkit. Every library goes into ``librosa_tpu_torch/_build/`` under a
 name that carries a hash of its source and flags (for a CUDA source also
 the headers in ``csrc/``), so an edited source is rebuilt and a stale
 library is never loaded.
@@ -31,13 +31,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"stft_mel": "stft_mel.cu", "staged_probe": "staged_probe.cu",
            "db_scale": "db_scale.cu", "ola_norm": "ola_norm.cu",
-           "median_filter": "median_filter.cu"}
+           "median_filter": "median_filter.cu", "beat_dp": "beat_dp.cu",
+           "viterbi": "viterbi.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # host code: g++, linked against libdl only (the codec libraries are dlopen'd)
-HOST_SOURCES = {"audioio": "audioio.cpp"}
+HOST_SOURCES = {"audioio": "audioio.cpp", "hostdp": "hostdp.cpp"}
 HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 HOST_LIBS = ["-ldl"]
 
@@ -84,7 +85,7 @@ def build_log(name: str) -> str:
 def build_all(names: Iterable[str] = (*SOURCES, *HOST_SOURCES)) -> None:
     """Compile every library of ``names`` that is not built yet, one compiler each, all at once.
 
-    The default is every CUDA kernel and the host decoder.
+    The default is every CUDA kernel and every host library.
 
     Raises ``RuntimeError`` with the compiler's output if a build fails.
     """
@@ -110,7 +111,7 @@ def build_all(names: Iterable[str] = (*SOURCES, *HOST_SOURCES)) -> None:
 
 
 def build(name: str) -> None:
-    """Compile ``name`` (a kernel or the host decoder) unless its library is built already."""
+    """Compile ``name`` (a kernel or a host library) unless its library is built already."""
     build_all([name])
 
 

@@ -2,19 +2,20 @@
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .._device import as_tensor
+from ..ops import peaks as _peaks
 from ..ops.framing import frame_signal
 from .exceptions import ParameterError
 
 __all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax", "localmin",
            "dtype_r2c", "dtype_c2r", "abs2", "phasor", "softmask", "sparsify_rows", "frame",
-           "is_positive_int"]
+           "is_positive_int", "valid_int", "fix_frames", "index_to_slice", "sync", "peak_pick"]
 
 # numpy's names for padding modes, as torch.nn.functional.pad knows them
 _TORCH_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
@@ -82,6 +83,159 @@ def is_positive_int(x: Any) -> bool:
     if not isinstance(x, (int, np.integer)):
         return False
     return x > 0
+
+
+def valid_int(x: float, *, cast: Optional[Callable[[float], float]] = None) -> int:
+    """``int(cast(x))``, with ``cast`` ``np.floor`` by default."""
+    rounder = np.floor if cast is None else cast
+    if not callable(rounder):
+        raise ParameterError(f"cast={cast!r} is not a callable rounding function")
+    return int(rounder(x))
+
+
+def fix_frames(frames: Any, *, x_min: Optional[int] = 0, x_max: Optional[int] = None,
+               pad: bool = True) -> np.ndarray:
+    """Sorted unique frame indices within ``[x_min, x_max]``, as a numpy int array.
+
+    With ``pad`` the indices are clipped into the range and both endpoints
+    are added; without it those outside the range are dropped. Host index
+    arithmetic, as in the JAX package.
+    """
+    candidates = _host(frames)
+    if (candidates < 0).any():
+        raise ParameterError("frame indices must be non-negative")
+    endpoints = [e for e in (x_min, x_max) if e is not None]
+    if pad:
+        if endpoints:
+            candidates = np.clip(candidates, x_min, x_max)
+        candidates = np.append(candidates, endpoints)
+    else:
+        keep = np.ones(candidates.shape, dtype=bool)
+        if x_min is not None:
+            keep &= candidates >= x_min
+        if x_max is not None:
+            keep &= candidates <= x_max
+        candidates = candidates[keep]
+    return np.unique(candidates).astype(int)
+
+
+def index_to_slice(idx: Any, *, idx_min: Optional[int] = None, idx_max: Optional[int] = None,
+                   step: Optional[int] = None, pad: bool = True) -> list:
+    """One ``slice(start, stop, step)`` per pair of neighbouring boundaries of :func:`fix_frames`."""
+    fixed = fix_frames(idx, x_min=idx_min, x_max=idx_max, pad=pad)
+    return [slice(start, end, step) for start, end in zip(fixed, fixed[1:])]
+
+
+def _median(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """numpy's median along ``dim``: the mean of the two middle values for an even count.
+
+    ``torch.median`` takes the lower middle value; this sorts and averages.
+    """
+    n = x.shape[dim]
+    ordered = x.sort(dim=dim).values
+    upper = ordered.narrow(dim, n // 2, 1)
+    mid = upper if n % 2 else (ordered.narrow(dim, n // 2 - 1, 1) + upper) / 2
+    return mid if keepdim else mid.squeeze(dim)
+
+
+def sync(data: Any, idx: Any, *, aggregate: Optional[Callable] = None, pad: bool = True,
+         axis: int = -1) -> torch.Tensor:
+    """Aggregate ``data`` along ``axis`` between boundaries (indices or slices).
+
+    ``idx`` is a sequence of boundary indices (turned into slices by
+    :func:`index_to_slice` over ``[0, n]``, the ends added with ``pad``) or
+    a list of slices. ``aggregate`` defaults to the mean; numpy's mean,
+    average, sum, max, min, median (the mean of the two middle values),
+    std, var and prod run as torch reductions on ``data``'s device. Any other callable
+    is called as ``aggregate(segment, axis=axis, keepdims=True)`` on each
+    segment.
+    """
+    data = as_tensor(data)
+    aggregate = np.mean if aggregate is None else aggregate
+    n = data.shape[axis]
+    if len(idx) > 0 and isinstance(idx[0], slice):
+        slices = list(idx)
+    else:
+        idx_np = _host(idx)
+        if idx_np.ndim != 1 or not np.issubdtype(idx_np.dtype, np.integer):
+            raise ParameterError(f"Invalid index set: {idx}")
+        slices = index_to_slice(idx_np, idx_min=0, idx_max=n, pad=pad)
+    dim = axis % data.ndim
+    parts = []
+    for seg in slices:
+        index = [slice(None)] * data.ndim
+        index[dim] = seg
+        part = data[tuple(index)]
+        if aggregate is np.median:
+            parts.append(_median(part, dim, keepdim=True))
+            continue
+        reduced = _device_reduction(np.mean if aggregate is np.average else aggregate, part, dim)
+        parts.append(reduced if reduced is not None
+                     else as_tensor(aggregate(part, axis=axis, keepdims=True)))
+    return torch.cat(parts, dim=dim)
+
+
+def peak_pick(x: Any, *, pre_max: int, post_max: int, pre_avg: int, post_avg: int, delta: float,
+              wait: int, sparse: bool = True, method: str = "greedy", axis: int = -1) -> np.ndarray:
+    """Peaks of an envelope along ``axis``, as indices (``sparse``, 1-D only) or a boolean mask.
+
+    A frame ``n`` is a candidate when it is the maximum of ``x[n - pre_max:
+    n + post_max]`` and at least ``delta`` above the mean of ``x[n -
+    pre_avg: n + post_avg]`` (windows clipped to the array). ``method``
+    'greedy' takes candidates left to right, at least ``wait`` frames
+    apart; 'dp_count' and 'dp_value' take the spaced set with the most
+    peaks or the largest summed height. One envelope runs in float64 on the
+    host as the JAX package runs it; several run their candidacy tests in
+    float32 as torch ops on ``x``'s device and the selection as a host loop
+    over the frames, all rows at once (``ops/peaks.py``). Returns numpy.
+    """
+    if sparse and np.ndim(x) != 1:
+        raise ParameterError("sparse=True (default) does not support "
+                             f"input with ndim={np.ndim(x)}. Set sparse=False.")
+    for name, value in (("pre_max", pre_max), ("pre_avg", pre_avg), ("delta", delta),
+                        ("wait", wait)):
+        if value < 0:
+            raise ParameterError(f"{name} must be non-negative")
+    if post_max <= 0:
+        raise ParameterError("post_max must be positive")
+    if post_avg <= 0:
+        raise ParameterError("post_avg must be positive")
+    if method not in ("greedy", "dp_count", "dp_value"):
+        raise ParameterError(f"Unsupported method: {method}")
+    win = dict(pre_max=valid_int(pre_max, cast=np.ceil), post_max=valid_int(post_max, cast=np.ceil),
+               pre_avg=valid_int(pre_avg, cast=np.ceil), post_avg=valid_int(post_avg, cast=np.ceil))
+    wait = valid_int(wait, cast=np.ceil)
+
+    xt = x.movedim(axis, -1) if isinstance(x, torch.Tensor) else np.moveaxis(np.asarray(x), axis, -1)
+    shape = tuple(xt.shape)
+    rows = int(np.prod(shape[:-1], dtype=np.int64))
+    if rows > 1:
+        flat = as_tensor(xt).reshape(rows, shape[-1]).to(torch.float32)
+        cand = _peaks.candidate_mask(flat, delta=float(delta), **win).cpu().numpy()
+        if method == "greedy":
+            out = _peaks.greedy_select(cand, wait)
+        else:
+            gain = np.ones(cand.shape, np.float32) if method == "dp_count" else \
+                flat.cpu().numpy()
+            out = _peaks.dp_select(cand, gain, wait)
+    else:
+        row = _host(xt).reshape(rows, shape[-1]).astype(np.float64)
+        out = np.zeros(row.shape, dtype=bool)
+        for i in range(rows):
+            if method == "greedy":
+                out[i] = _peaks.greedy_1d(row[i], delta=delta, wait=wait, **win)
+            else:
+                out[i] = _peaks.dp_1d(row[i], delta=delta, wait=wait,
+                                      count=method == "dp_count", **win)
+    mask = np.moveaxis(out.reshape(shape), -1, axis)
+    return np.flatnonzero(mask) if sparse else mask
+
+
+def _host(x: Any) -> np.ndarray:
+    """``x`` as a numpy array on the host (a tensor is copied off its device)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def tiny(x: Any) -> float:

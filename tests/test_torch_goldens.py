@@ -29,7 +29,11 @@ PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs", "filters_chro
           "default_semantics", "interval_systems", "filters_wavelet", "cqt", "vqt", "vqt_gamma",
           "pseudo_hybrid_cqt", "icqt", "cqt_configs", "chroma_cqt", "chroma_cens", "chroma_vqt",
           "hpss_margin", "hpss_configs", "audio_ops", "zero_crossings", "stream_blocks",
-          "lpc_burg_noise", "convert_units", "weighting_multi", "hpss_effect"]
+          "lpc_burg_noise", "convert_units", "weighting_multi", "hpss_effect", "onset",
+          "onset_strength", "onset_backtrack", "superflux", "beat", "plp", "rhythm",
+          "rhythm_extras", "tempo_configs", "fourier_tempo_variants", "yin", "yin_configs", "pyin",
+          "viterbi", "util_peak_pick", "util_matching", "sync_aggregates", "harmonics",
+          "harmonics_2d"]
 
 
 def _to_host(x):

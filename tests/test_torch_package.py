@@ -40,7 +40,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"librosa_tpu_torch/io/_soxr.py", "librosa_tpu_torch/core/audio.py",
             "librosa_tpu_torch/core/pitch.py", "librosa_tpu_torch/ops/ola_norm.py",
-            "librosa_tpu_torch/io/_native.py", "librosa_tpu_torch/util/files.py"} <= names
+            "librosa_tpu_torch/io/_native.py", "librosa_tpu_torch/util/files.py",
+            "librosa_tpu_torch/beat.py", "librosa_tpu_torch/ops/viterbi.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -145,6 +146,31 @@ def test_decoding_maps_no_file_of_the_jax_package(tmp_path):
         "assert not bad, bad\n"
         "lib = str(_native.library_path())\n"
         "assert lib in paths, (lib, sorted(p for p in paths if 'audioio' in p))\n"
+        f"assert lib.startswith({str(ROOT / 'librosa_tpu_torch' / '_build')!r} + '/'), lib\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'librosa_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_beat_tracking_maps_no_file_of_the_jax_package():
+    """After ``beat_track`` on one envelope, the port's own host DP is mapped and nothing of librosa_tpu/."""
+    import os
+
+    code = (
+        "import sys, numpy as np, librosa_tpu_torch as L\n"
+        "from librosa_tpu_torch.ops import _build\n"
+        "L.set_device('cpu')\n"
+        "env = np.zeros(400, dtype=np.float32); env[::22] = 1.0\n"
+        "tempo, beats = L.beat.beat_track(onset_envelope=env, sr=22050)\n"
+        "assert len(beats) > 5, beats\n"
+        "paths = {line.split()[-1] for line in open('/proc/self/maps') if '/' in line}\n"
+        f"bad = sorted(p for p in paths if p.startswith({str(ROOT / 'librosa_tpu')!r} + '/'))\n"
+        "assert not bad, bad\n"
+        "lib = str(_build._lib_path('hostdp'))\n"
+        "assert lib in paths, (lib, sorted(p for p in paths if 'hostdp' in p))\n"
         f"assert lib.startswith({str(ROOT / 'librosa_tpu_torch' / '_build')!r} + '/'), lib\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'librosa_tpu'))\n"
         "assert not bad, bad\n"
