@@ -76,20 +76,28 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    with a mel spectrogram per block against the whole file's, and times
    decoding, ``load`` and its stages, the forward, the path end to end and
    the stream;
-4i. config 5: holds the batched beat DP kernel (``csrc/beat_dp.cu``) against
-   its plain version, bit for bit on NaN-filled memory (ragged T from 1 to
-   8193, tempo per row and per frame, a window past 1024 frames, an all
-   negative row; 1 and 16 rows), and the Viterbi kernel (``csrc/viterbi.cu``)
-   likewise (2 to 1027 states, 1 to 8193 frames, pYIN's pruned transitions,
-   a third of the transitions -inf, exact ties); drives
-   ``entry.onset_beat_pyin()`` (onset strength, tempo, beats, pYIN at 65-800
-   Hz) on 16 seeded tracks of a melody over clicks of 2**22 samples, checks
-   its launches (stft_mel, db_scale, beat_dp and viterbi once each) and
-   holds tracks 0 and 1 against the port's float64 CPU run; runs bench.py's
-   1-D shapes (``beat_track`` of 30 s through the host DP, ``pyin`` of 5 s)
-   against float64 too; holds both kernels at the path's shapes against
-   their plain versions and times the path, its parts, both kernels, their
-   plain versions and bounds, with the peak memory;
+4i. config 5: holds the batched beat DP kernel (``csrc/beat_dp.cu``, steps of
+   frames that do not depend on each other) against its plain version, bit
+   for bit on NaN-filled memory (ragged T from 1 to 8193, T shorter than a
+   step, tempo per row and per frame, fpb 1-3 and fpb per frame swinging
+   2-60, a window past 1024 frames, an all negative row; 1 and 16 rows), and
+   the Viterbi kernels (``csrc/viterbi.cu``) likewise on both routes of the
+   forward pass and through ``viterbi_decode`` (2 to 1027 states, both sides
+   of the route threshold, 1 to 8193 frames, 1 to 17 rows, pYIN's pruned
+   transitions with and without two all -inf columns, log_prob -inf over a
+   column's runs, a dense 870-state matrix, a third of the transitions -inf,
+   exact ties); times the forward pass by route at S = 2, 5, 64, 128, 256 and
+   870; drives ``entry.onset_beat_pyin()`` (onset strength, tempo, beats, pYIN
+   at 65-800 Hz) on 16 seeded tracks of a melody over clicks of 2**22 samples,
+   checks its launches (stft_mel, db_scale, beat_dp and viterbi once each)
+   and holds tracks 0 and 1 against the port's float64 CPU run; runs
+   bench.py's 1-D shapes (``beat_track`` of 30 s through the host DP,
+   ``pyin`` of 5 s) against float64 too; holds both kernels at the path's
+   shapes against their plain versions and times the path, its parts, both
+   kernels (B's forward at cluster 8 and 4 and its backtrack apart), their
+   plain versions, bounds and probes (A's step chain, B's cluster exchange,
+   ``cudaOccupancyMaxActiveClusters``), beside the earlier designs' times,
+   with the peak memory;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024;
@@ -1736,6 +1744,12 @@ MIN_ENV_SNR_DB = 110.0    # the onset_strength golden's floor
 MIN_F0_SNR_DB = 100.0     # f0 where both runs say voiced
 MIN_VOICED_EQUAL = 0.999  # share of frames with the same voicing decision
 BEAT_TOL_FRAMES = 1       # the beat golden's rule: each beat within a frame, one beat more or less
+# the earlier designs' times on this path (PERF.md §5 and §6, NVIDIA H100 80GB HBM3, 700 W):
+# kernel B one block per row, kernel A one warp per row and one frame a step, and its chain probe
+VITERBI_EARLIER_MS = 357.2833
+BEAT_DP_EARLIER_MS = 3.5958
+BEAT_DP_EARLIER_CHAIN_MS = 1.2978
+CONFIG5_EARLIER_MS = 630.2430
 
 
 def config5_signal(torch, shape, seed, device):
@@ -1791,7 +1805,11 @@ def beat_dp_kernel_phase(torch, rng, device) -> None:
               ("T 2000, 1 row, fpb 700 (2 fpb beyond the 1024 window)", 1, 2000, False, 700, 0,
                False),
               ("T 1025, 16 rows, row 3 all negative (first-beat gating)", 16, 1025, False, 43, 5,
-               True)]
+               True),
+              ("T 3000, 16 rows, fpb 1-3 per frame (one or two frames a step)", 16, 3000, True, 2,
+               1, False),
+              ("T 8193, 16 rows, fpb per frame swinging 2-60", 16, 8193, True, 31, 29, False),
+              ("T 7, 16 rows, shorter than one step", 16, 7, False, 43, 5, False)]
     for label, rows, T, tv, fpb0, spread, negative in cases:
         ls = rng.randn(rows, T).astype(np.float32)
         if negative:
@@ -1799,6 +1817,7 @@ def beat_dp_kernel_phase(torch, rng, device) -> None:
         fpb = (fpb0 + rng.randint(-spread, spread + 1, size=(rows, T if tv else 1)))
         ls_d = torch.from_numpy(ls).to(device)
         fpb_d = torch.from_numpy(fpb.astype(np.float32)).to(device)
+        steps = max(len(beat_dp.step_schedule(fpb[r], T)) for r in range(rows))
         poison_all(torch, [(rows, T), (rows, T)], device)
         got_b, got_c = beat_dp.beat_dp(ls_d, fpb_d, 100.0)
         want_b, want_c = beat_dp.beat_dp_reference(ls_d, fpb_d, 100.0)
@@ -1806,7 +1825,7 @@ def beat_dp_kernel_phase(torch, rng, device) -> None:
         ok = torch.equal(got_b, want_b) and torch.equal(got_c, want_c)
         links = int((got_b >= 0).sum())
         print(f"beat_dp kernel vs plain, {label}: {'bit-equal' if ok else 'DIFFERENT'} "
-              f"({links} backlinks set)")
+              f"({links} backlinks set; {steps} steps on the slowest row)")
         if not ok:
             raise AssertionError(f"beat_dp kernel vs plain, {label}: "
                                  f"{int((got_b != want_b).sum())} backlinks and "
@@ -1814,8 +1833,16 @@ def beat_dp_kernel_phase(torch, rng, device) -> None:
     print(f"beat_dp kernel vs plain: {len(cases)} cases bit-equal, each on NaN-filled memory")
 
 
+def viterbi_on_route(torch, viterbi, lp_d, lt_d, lpi_d, route):
+    """States and logp of the Viterbi kernels with the forward pass forced onto ``route``."""
+    ptrs, states, logp = viterbi.forward(lp_d, lt_d, lpi_d, route)
+    viterbi.backtrack(ptrs, states, lp_d.shape[-1])
+    return states, logp
+
+
 def viterbi_kernel_phase(torch, rng, device, pyin_trans) -> None:
-    """Phase 4i, kernel B: the Viterbi kernel against its plain version, bit for bit."""
+    """Phase 4i, kernel B: the Viterbi kernels against their plain version, bit for bit, on
+    every route of the forward pass."""
     from librosa_tpu_torch.ops import viterbi
 
     lt870, lpi870 = pyin_trans
@@ -1832,34 +1859,97 @@ def viterbi_kernel_phase(torch, rng, device, pyin_trans) -> None:
         lp = rng.randint(-3, 1, size=(rows, T, S)).astype(np.float32)
         return lp, np.zeros((S, S), np.float32), np.zeros(S, np.float32)
 
+    def pyin_case(rows, T):
+        return random_case(rows, T, 870, False)[0], lt870, lpi870
+
+    def empty_columns_case():
+        lt = lt870.copy()
+        lt[:, [17, 600]] = -np.inf  # two states that no state reaches
+        return random_case(4, 216, 870, False)[0], lt, lpi870
+
+    def empty_runs_case():
+        # every p of column 300's runs is -inf in frames 40-49: its sums are all -inf there
+        lp = random_case(2, 216, 870, False)[0]
+        lp[:, 40:50, np.isfinite(lt870[:, 300])] = -np.inf
+        return lp, lt870, lpi870
+
+    edge = viterbi.CLUSTER_MIN_STATES
     cases = [("S 2, T 1, 16 rows", *random_case(16, 1, 2, False)),
              ("S 2, T 8193, 16 rows", *random_case(16, 8193, 2, False)),
              ("S 5, T 2, 16 rows", *random_case(16, 2, 5, True)),
              ("S 5, T 216, 4 rows, exact ties everywhere", *tie_case(4, 216, 5)),
-             ("S 870, T 216, 16 rows, pYIN's pruned transitions",
-              random_case(16, 216, 870, False)[0], lt870, lpi870),
-             ("S 870, T 8193, 2 rows, pYIN's pruned transitions",
-              random_case(2, 8193, 870, False)[0], lt870, lpi870),
+             ("S 870, T 216, 16 rows, pYIN's pruned transitions", *pyin_case(16, 216)),
+             ("S 870, T 8193, 2 rows, pYIN's pruned transitions", *pyin_case(2, 8193)),
              ("S 1027, T 216, 3 rows, a third of the transitions -inf",
               *random_case(3, 216, 1027, True)),
              ("S 1027, T 8193, 1 row, a third of the transitions -inf",
               *random_case(1, 8193, 1027, True)),
-             ("S 870, T 216, 2 rows, exact ties everywhere", *tie_case(2, 216, 870))]
+             ("S 870, T 216, 2 rows, exact ties everywhere", *tie_case(2, 216, 870)),
+             ("S 870, T 216, 4 rows, pYIN's transitions with two all -inf columns",
+              *empty_columns_case()),
+             ("S 870, T 216, 2 rows, log_prob -inf over column 300's runs in 10 frames",
+              *empty_runs_case()),
+             ("S 870, T 216, 2 rows, dense transitions (values in global memory)",
+              *random_case(2, 216, 870, False)),
+             (f"S {edge - 1}, T 1000, 4 rows, pruned (below the route threshold)",
+              *random_case(4, 1000, edge - 1, True)),
+             (f"S {edge}, T 1000, 4 rows, pruned (at the route threshold)",
+              *random_case(4, 1000, edge, True)),
+             ("S 870, T 216, 1 row, pYIN's transitions (bench.py's 5 s pyin)", *pyin_case(1, 216)),
+             ("S 870, T 64, 17 rows, pYIN's transitions (more clusters than 16)",
+              *pyin_case(17, 64))]
     for label, lp, lt, lpi in cases:
         lp_d, lt_d, lpi_d = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
                              for a in (lp, lt, lpi))
         rows, T, S = lp.shape
-        poison_all(torch, [(rows, T), (rows,)], device)
-        got_s, got_p = viterbi.viterbi_decode(lp_d, lt_d, lpi_d)
         want_s, want_p = viterbi.viterbi_reference(lp_d, lt_d, lpi_d)
+        results = []
+        for route in viterbi.ROUTES:
+            poison_all(torch, [(rows, T), (rows,)], device)
+            results.append((route, *viterbi_on_route(torch, viterbi, lp_d, lt_d, lpi_d, route)))
+        poison_all(torch, [(rows, T), (rows,)], device)
+        results.append((f"viterbi_decode ({viterbi.route_for(S, rows)})",
+                        *viterbi.viterbi_decode(lp_d, lt_d, lpi_d)))
         torch.cuda.synchronize()
-        ok = torch.equal(got_s, want_s) and torch.equal(got_p, want_p)
-        print(f"viterbi kernel vs plain, {label}: {'bit-equal' if ok else 'DIFFERENT'}")
-        if not ok:
-            raise AssertionError(f"viterbi kernel vs plain, {label}: "
-                                 f"{int((got_s != want_s).sum())} states differ, logp "
-                                 f"{got_p.tolist()[:4]} vs {want_p.tolist()[:4]}")
-    print(f"viterbi kernel vs plain: {len(cases)} cases bit-equal, each on NaN-filled memory")
+        for route, got_s, got_p in results:
+            ok = torch.equal(got_s, want_s) and torch.equal(got_p, want_p)
+            print(f"viterbi kernel vs plain, {label}, {route}: "
+                  f"{'bit-equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                raise AssertionError(f"viterbi kernel vs plain, {label}, {route}: "
+                                     f"{int((got_s != want_s).sum())} states differ, logp "
+                                     f"{got_p.tolist()[:4]} vs {want_p.tolist()[:4]}")
+    print(f"viterbi kernels vs plain: {len(cases)} cases bit-equal on every route "
+          f"({', '.join(viterbi.ROUTES)}) and through viterbi_decode, each on NaN-filled "
+          f"memory")
+
+
+def viterbi_route_times(torch, rng, device, lt870, lpi870) -> dict:
+    """Kernel B's forward pass by each route on (16, 8193, S), S = 2, 5, 64, 128, 256, 870."""
+    from librosa_tpu_torch.ops import viterbi
+
+    times = {}
+    for S in (2, 5, 64, 128, 256, 870):
+        if S == 870:
+            lt_d, lpi_d = lt870, lpi870
+        else:
+            lt_d = torch.from_numpy(np.log(rng.rand(S, S)).astype(np.float32)).to(device)
+            lpi_d = torch.full((S,), float(np.log(1.0 / S)), device=device)
+        lp_d = torch.log(torch.rand((16, 8193, S), generator=torch.Generator(device=device)
+                                    .manual_seed(S), device=device))
+        runs = viterbi.run_table(lt_d.cpu().numpy()).on(device)
+        times[S] = {route: time_ms(torch, lambda: viterbi.forward(lp_d, lt_d, lpi_d, route, runs),
+                                   1, groups=2)
+                    for route in viterbi.ROUTES}
+        del lp_d
+    faster = [S for S, t in times.items() if t["cluster"] < t["block"]]
+    print("viterbi forward by route on (16, 8193, S): " + "; ".join(
+        f"S {S}: block {t['block']:.4f} ms, cluster {t['cluster']:.4f} ms"
+        for S, t in times.items()))
+    print(f"viterbi route threshold: the cluster route is faster at S in {faster}; "
+          f"viterbi_decode takes it from S >= {viterbi.CLUSTER_MIN_STATES} "
+          f"(CLUSTER_MIN_STATES)")
+    return times
 
 
 def dp_candidates(fpb: np.ndarray, T: int, window: int = 1024) -> int:
@@ -1888,6 +1978,7 @@ def config5_phase(torch, L, device) -> dict:
           f"{int(torch.isinf(lt).sum())} of {lt.numel()} transitions pruned to -inf")
     beat_dp_kernel_phase(torch, rng, device)
     viterbi_kernel_phase(torch, rng, device, (lt.cpu().numpy(), lpi.cpu().numpy()))
+    route_times = viterbi_route_times(torch, rng, device, lt, lpi)
 
     counters = (fused_stft, db_scale, ola_norm, median, beat_dp, viterbi)
     names = ("stft_mel", "db_scale", "ola_norm", "median_filter", "beat_dp", "viterbi")
@@ -1895,6 +1986,8 @@ def config5_phase(torch, L, device) -> dict:
     def zero():
         for mod in counters:
             mod.launches = 0
+        for r in viterbi.launches_by_route:
+            viterbi.launches_by_route[r] = 0
 
     def read():
         return {n: mod.launches for n, mod in zip(names, counters)}
@@ -1910,6 +2003,7 @@ def config5_phase(torch, L, device) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = read()
+    route_counts = dict(viterbi.launches_by_route)
     peak_bytes = torch.cuda.max_memory_allocated()
     rows, n_frames = MAIN_SHAPE[0], 1 + MAIN_SHAPE[1] // 512
     print(f"onset_beat_pyin: y {tuple(y.shape)} -> envelope {tuple(env.shape)}, tempo "
@@ -1963,6 +2057,7 @@ def config5_phase(torch, L, device) -> dict:
     f0_5, v5, _ = L.pyin(y5, sr=SR, **PYIN5)
     torch.cuda.synchronize()
     bench_counts = read()
+    route_counts = {r: n + viterbi.launches_by_route[r] for r, n in route_counts.items()}
     tempo30_64, beats30_64 = L.beat.beat_track(y=y30.cpu().double(), sr=SR)
     f0_5_64, v5_64, _ = L.pyin(y5.cpu().double(), sr=SR, **PYIN5)
     both5 = (v5.cpu() & v5_64).numpy()
@@ -1997,6 +2092,7 @@ def config5_phase(torch, L, device) -> dict:
     dp_want = beat_dp.beat_dp_reference(ls_d, fpb_d, 100.0)
     dp_equal = torch.equal(dp_got[0], dp_want[0]) and torch.equal(dp_got[1], dp_want[1])
     dp_err = float((dp_got[1] - dp_want[1]).abs().max())
+    dp_steps = max(len(beat_dp.step_schedule(fpb[r], n_frames)) for r in range(fpb.shape[0]))
     dp_ms = time_ms(torch, lambda: beat_dp.beat_dp(ls_d, fpb_d, 100.0), 10)
     dp_plain_ms = time_ms(torch, lambda: beat_dp.beat_dp_reference(ls_d, fpb_d, 100.0), 1,
                           groups=1)
@@ -2010,10 +2106,18 @@ def config5_phase(torch, L, device) -> dict:
     obs_full, _ = pitch._pyin_observe(y, **obs_kw)
     lp = pitch._pyin_log_prob(obs_full).transpose(-2, -1).contiguous()
     del obs_full
-    vit_got = viterbi.viterbi_decode(lp, lt, lpi)
+    table = viterbi.run_table(log_trans).on(device)  # as sequence._decode caches it for pyin
+    vit_got = viterbi.viterbi_decode(lp, lt, lpi, table)
     vit_want = viterbi.viterbi_reference(lp, lt, lpi)
     vit_equal = torch.equal(vit_got[0], vit_want[0]) and torch.equal(vit_got[1], vit_want[1])
-    vit_ms = time_ms(torch, lambda: viterbi.viterbi_decode(lp, lt, lpi), 1, groups=3)
+    vit_ms = time_ms(torch, lambda: viterbi.viterbi_decode(lp, lt, lpi, table), 1, groups=3)
+    route = viterbi.route_for(lp.shape[-1], lp.shape[0])
+    fwd_ms = time_ms(torch, lambda: viterbi.forward(lp, lt, lpi, route, table), 1, groups=3)
+    ptrs, st_bt, _ = viterbi.forward(lp, lt, lpi, route, table)
+    back_ms = time_ms(torch, lambda: viterbi.backtrack(ptrs, st_bt, lp.shape[-1]), 5)
+    del ptrs, st_bt
+    exchange_ms = viterbi.exchange_floor_ms(lp.shape[0], lp.shape[1], table)
+    occupancy = viterbi.max_active_clusters(table)
     vit_plain_ms = time_ms(torch, lambda: viterbi.viterbi_reference(lp, lt, lpi), 1, groups=1)
     pyin_ms = time_ms(torch, lambda: L.pyin(y, sr=SR, **PYIN5), 1, groups=2)
     print(f"at the path's shapes: beat_dp kernel vs plain {'bit-equal' if dp_equal else 'DIFFERENT'}"
@@ -2028,28 +2132,46 @@ def config5_phase(torch, L, device) -> dict:
     dp_bytes_ms = 1e3 * (4 * ls_d.numel() + 4 * fpb_d.numel() + 8 * ls_d.numel()) / H100_HBM_BYTES_S
     n_cand = dp_candidates(fpb, T)
     dp_ops_ms = 1e3 * 5 * n_cand / H100_F32_FLOP_S  # sub, mul, mul, sub, compare a candidate
-    # the chain of T dependent frames: the probe runs only each step's ring read, warp
-    # reduction and ring write, on as many rows, so its measured time is the least the chain takes
-    dp_chain_ms = beat_dp.chain_floor_ms(ls_d.shape[0], T, device)
+    # the chain of steps: the probe runs only each step's flags, ring read, warp reduction,
+    # ring write and barrier, as many full steps as the slowest row takes, on as many rows
+    dp_chain_ms = beat_dp.chain_floor_ms(ls_d.shape[0], dp_steps, device)
     dp_terms = {"bytes": dp_bytes_ms, "operations": dp_ops_ms, "dependence chain": dp_chain_ms}
     dp_binding = max(dp_terms, key=dp_terms.get)
     vit_bytes_ms = 1e3 * (4 * lp.numel() + 4 * S * S + 4 * S + 4 * rows * T + 4 * rows) \
         / H100_HBM_BYTES_S
-    vit_ops_ms = 1e3 * 2 * rows * (T - 1) * S * S / H100_F32_FLOP_S  # an add and a compare a pair
+    # an add and a compare a pair; an exact scan may skip the pairs whose transition is -inf
+    finite_pairs = rows * (T - 1) * table.n_finite
+    vit_ops_ms = 1e3 * 2 * finite_pairs / H100_F32_FLOP_S
+    vit_dense_ms = 1e3 * 2 * rows * (T - 1) * S * S / H100_F32_FLOP_S
+    vit_terms = {"bytes": vit_bytes_ms, "operations": vit_ops_ms}
+    vit_binding = max(vit_terms, key=vit_terms.get)
     print(f"config 5 end to end {e2e_ms:.4f} ms on {MAIN_SHAPE} "
-          f"({MAIN_SHAPE[0] * MAIN_SHAPE[1] / (e2e_ms / 1e3):.6e} samples/s); alone: "
-          f"onset_strength (median) {onset_ms:.4f} ms, tempo {tempo_ms:.4f} ms, beat_track from "
-          f"the envelope {track_ms:.4f} ms, pyin {pyin_ms:.4f} ms (yin frames {yin_ms:.4f} ms, "
-          f"observation {observe_ms:.4f} ms, Viterbi kernel {vit_ms:.4f} ms)")
-    print(f"beat_dp kernel {dp_ms:.4f} ms, plain {dp_plain_ms:.4f} ms, bound "
-          f"{max(dp_bytes_ms, dp_ops_ms):.6f} ms by bytes and operations (bytes "
-          f"{dp_bytes_ms:.6f}, operations {dp_ops_ms:.6f}: {n_cand} candidates); a chain of {T} "
-          f"dependent steps, {1e6 * dp_ms / T:.2f} ns a step, whose floor (the chain probe, "
-          f"measured) is {dp_chain_ms:.4f} ms, {1e6 * dp_chain_ms / T:.2f} ns a step; the "
-          f"{dp_binding} binds: the kernel runs at {dp_ms / dp_terms[dp_binding]:.2f}x that bound")
-    print(f"viterbi kernel {vit_ms:.4f} ms, plain {vit_plain_ms:.4f} ms, bound "
-          f"{max(vit_bytes_ms, vit_ops_ms):.4f} ms (bytes {vit_bytes_ms:.4f}, operations "
-          f"{vit_ops_ms:.4f}: {rows * (T - 1) * S * S:.4e} add-and-compare pairs)")
+          f"({MAIN_SHAPE[0] * MAIN_SHAPE[1] / (e2e_ms / 1e3):.6e} samples/s; the earlier "
+          f"kernels' run in PERF.md: {CONFIG5_EARLIER_MS} ms); alone: onset_strength (median) "
+          f"{onset_ms:.4f} ms, tempo {tempo_ms:.4f} ms, beat_track from the envelope "
+          f"{track_ms:.4f} ms, pyin {pyin_ms:.4f} ms (yin frames {yin_ms:.4f} ms, observation "
+          f"{observe_ms:.4f} ms, Viterbi kernels {vit_ms:.4f} ms)")
+    print(f"beat_dp kernel {dp_ms:.4f} ms (the one-frame-a-step design in PERF.md: "
+          f"{BEAT_DP_EARLIER_MS} ms, its chain probe {BEAT_DP_EARLIER_CHAIN_MS} ms), plain "
+          f"{dp_plain_ms:.4f} ms, bound {max(dp_bytes_ms, dp_ops_ms):.6f} ms by bytes and "
+          f"operations (bytes {dp_bytes_ms:.6f}, operations {dp_ops_ms:.6f}: {n_cand} "
+          f"candidates); a chain of {dp_steps} steps of up to {beat_dp.STEP_FRAMES} frames on "
+          f"the slowest row ({T} frames), {1e6 * dp_ms / dp_steps:.2f} ns a step, whose floor "
+          f"(the step probe, measured) is {dp_chain_ms:.4f} ms, "
+          f"{1e6 * dp_chain_ms / dp_steps:.2f} ns a step; the {dp_binding} binds: the kernel "
+          f"runs at {dp_ms / dp_terms[dp_binding]:.2f}x that bound")
+    print(f"viterbi kernels {vit_ms:.4f} ms by the {route} route (the one-block-per-row design "
+          f"in PERF.md: {VITERBI_EARLIER_MS} ms), plain {vit_plain_ms:.4f} ms; forward "
+          f"{fwd_ms:.4f} ms at cluster {viterbi.CLUSTER} (group {table.group(viterbi.CLUSTER)} "
+          f"lanes a column, values on chip {viterbi.keeps_values_on_chip(table)}), backtrack "
+          f"{back_ms:.4f} ms; cudaOccupancyMaxActiveClusters {occupancy} at cluster "
+          f"{viterbi.CLUSTER} for {rows} rows; the exchange probe (distributed-shared-memory "
+          f"stores and one cluster barrier a frame) {exchange_ms:.4f} ms")
+    print(f"viterbi bound {max(vit_terms.values()):.4f} ms by {vit_binding} (finite-pair "
+          f"operations {vit_ops_ms:.4f}: {finite_pairs:.4e} add-and-compare pairs, "
+          f"{table.n_finite} of {S * S} transitions finite; dense operations {vit_dense_ms:.4f}; "
+          f"bytes {vit_bytes_ms:.4f}); the kernels run at "
+          f"{vit_ms / max(vit_terms.values()):.2f}x it")
     paths = {"mel_db_mfcc": 0, "feature_stack": 0, "reconstruction": 0, "cqt_hpss": 0,
              "config1_files": 0}
     dp_entry = {
@@ -2062,7 +2184,7 @@ def config5_phase(torch, L, device) -> dict:
         "max_abs_err": dp_err, "ms": dp_ms, "kernel_ms": dp_ms, "plain_ms": dp_plain_ms,
         "bound_ms": max(dp_bytes_ms, dp_ops_ms),
         "bound_by": "bytes" if dp_bytes_ms >= dp_ops_ms else "operations",
-        "library_ms": None, "dependent_steps": T, "ns_per_step": 1e6 * dp_ms / T,
+        "library_ms": None, "dependent_steps": dp_steps, "ns_per_step": 1e6 * dp_ms / dp_steps,
         "chain_bound_ms": dp_chain_ms, "binding_term": dp_binding,
     }
     vit_entry = {
@@ -2072,11 +2194,16 @@ def config5_phase(torch, L, device) -> dict:
         "launches": counts["viterbi"] + bench_counts["viterbi"],
         "launches_by_path": {**paths, "onset_beat_pyin": counts["viterbi"],
                              "config5_bench_1d": bench_counts["viterbi"]},
+        "launches_by_route": {**route_counts},
         "max_abs_err": float((vit_got[1] - vit_want[1]).abs().max()), "ms": vit_ms,
-        "kernel_ms": vit_ms, "plain_ms": vit_plain_ms,
-        "bound_ms": max(vit_bytes_ms, vit_ops_ms),
-        "bound_by": "bytes" if vit_bytes_ms >= vit_ops_ms else "operations",
-        "library_ms": None, "states": S,
+        "kernel_ms": vit_ms, "forward_ms": fwd_ms, "backtrack_ms": back_ms,
+        "plain_ms": vit_plain_ms,
+        "bound_ms": max(vit_terms.values()), "bound_by": vit_binding,
+        "ratio_to_bound": vit_ms / max(vit_terms.values()), "dense_bound_ms": vit_dense_ms,
+        "bytes_bound_ms": vit_bytes_ms, "finite_pairs": finite_pairs,
+        "cluster_blocks": viterbi.CLUSTER, "group_lanes": table.group(viterbi.CLUSTER),
+        "max_active_clusters": occupancy, "chain_bound_ms": exchange_ms,
+        "route_forward_ms": route_times, "library_ms": None, "states": S,
     }
     return {"launches": counts, "bench_launches": bench_counts, "beat_dp": dp_entry,
             "viterbi": vit_entry, "e2e_ms": e2e_ms}

@@ -15,7 +15,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-__all__ = ["set_device", "get_device", "as_tensor", "device_table", "exact_f32"]
+__all__ = ["set_device", "get_device", "as_tensor", "device_table", "device_object", "exact_f32"]
 
 _default = torch.device("cuda")
 
@@ -68,6 +68,20 @@ def device_table(key: tuple, make: Callable[[], Any], device: torch.device,
         table = torch.tensor(np.ascontiguousarray(make()), dtype=dtype, device=device)
         _tables[full] = table
     return table
+
+
+def device_object(key: tuple, make: Callable[[torch.device], Any], device: torch.device) -> Any:
+    """One object per (``key``, device) that ``make(device)`` builds, kept beside
+    :func:`device_table`'s tables: a table of several device arrays, such as a
+    transition matrix's runs of finite entries."""
+    full = (key, str(device), None)
+    obj = _tables.get(full)
+    if obj is None:
+        if len(_tables) >= 128:
+            _tables.clear()
+        obj = make(device)
+        _tables[full] = obj
+    return obj
 
 
 @contextlib.contextmanager

@@ -396,9 +396,8 @@ def pyin(y: Any, *, fmin: float, fmax: float, sr: float = 22050, frame_length: i
 
     from ..sequence import _decode
 
-    lt = device_table(("pyin_log_trans", key), lambda: log_trans, y.device, dtype)
     lpi = device_table(("pyin_log_p_init", key), lambda: log_p_init, y.device, dtype)
-    states, _ = _decode(_pyin_log_prob(obs_full), lt, lpi)
+    states, _ = _decode(_pyin_log_prob(obs_full), log_trans, lpi, ("pyin_log_trans", key))
     freqs = fmin * 2.0 ** (torch.arange(n_pitch_bins, dtype=dtype, device=y.device)
                            / (12 * n_bins_per_semitone))
     states = states.long()

@@ -1,7 +1,10 @@
-"""Staged-copy diagnostics: how fast tiles of rows reach shared memory on the card.
+"""Diagnostics on the card: measurements that no path runs.
 
 ``python -m librosa_tpu_torch.diagnostics.dma_bisect [variants]`` and
 ``python -m librosa_tpu_torch.diagnostics.dma_pipeline_micro [WRAP]`` run
 the kernels of ``ops/staged_probe.py`` at the copy geometry of the
 production mel kernel and print their times per tile.
+``python -m librosa_tpu_torch.diagnostics.viterbi_cluster`` times the
+Viterbi kernel's cluster route at other cluster sizes and lanes a column
+than the path's.
 """

@@ -10,9 +10,11 @@ that reaches a hundredth of the row's maximum. It is the JAX package's
 vmapped ``_beat_dp_scan`` (``librosa_tpu/beat.py:35``).
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/beat_dp.cu``
-(one warp per row; built for ``sm_90a`` at first use by ``ops/_build.py``)
-or raises; on a CPU tensor it runs :func:`beat_dp_reference`, the plain
-PyTorch version: a loop over frames, all rows at once. Both take ``log d``,
+(one block per row, each step scoring up to 16 frames that do not depend on
+each other, one warp a frame: :func:`step_schedule`; built for ``sm_90a`` at
+first use by ``ops/_build.py``) or raises; on a CPU tensor it runs
+:func:`beat_dp_reference`, the plain PyTorch version: a loop over frames,
+all rows at once. Both take ``log d``,
 ``log fpb`` and the threshold from the same torch ops and form the penalty
 in the same order without fused multiply-adds, so they agree to the bit.
 
@@ -33,9 +35,10 @@ from ..util.exceptions import ParameterError
 from . import _build
 
 __all__ = ["beat_dp", "beat_dp_reference", "beat_dp_host", "chain_floor_ms", "kernel_refusal",
-           "launches", "MAX_WINDOW"]
+           "launches", "step_schedule", "MAX_WINDOW", "STEP_FRAMES"]
 
 MAX_WINDOW = 1024  # the largest predecessor distance, frames (the JAX package's _MAX_WINDOW)
+STEP_FRAMES = 16  # frames a step of the kernel scores at most (csrc/beat_steps.cuh)
 _MAX_ROWS = 2**31 - 1
 
 #: Kernel launches so far: :func:`beat_dp` adds one per call that reaches the card.
@@ -150,17 +153,44 @@ def beat_dp(localscore: torch.Tensor, frames_per_beat: torch.Tensor,
     return backlink, cumscore
 
 
-def chain_floor_ms(rows: int, T: int, device: torch.device, repeats: int = 10) -> float:
-    """The least time of the beat DP's chain of ``T`` dependent steps on ``rows`` rows, in ms.
+def step_schedule(frames_per_beat: np.ndarray, T: int) -> np.ndarray:
+    """The frames of each step of the kernel on one row: ``csrc/beat_steps.cuh``'s rule.
+
+    ``frames_per_beat`` is the row's ``(T,)`` or ``(1,)`` float32. A step at
+    frame ``i`` takes frames ``i .. i + k - 1`` while each frame ``i + m``
+    has no candidate ``d <= m`` (its ``lo = max(round(fpb / 2), 1)`` is
+    above ``m``, or it has none), at most :data:`STEP_FRAMES`.
+    """
+    f = np.broadcast_to(np.asarray(frames_per_beat, dtype=np.float32).reshape(-1), (T,))
+    j = np.arange(T)
+    with np.errstate(invalid="ignore"):
+        lo = np.maximum(np.rint(f * np.float32(0.5)), np.float32(1.0))
+        hi = np.minimum(np.floor(np.float32(2.0) * f), np.minimum(j, MAX_WINDOW).astype(np.float32))
+        none = ~(lo <= hi)
+    lo_i = np.where(none, T + MAX_WINDOW, lo).astype(np.int64)  # no candidate: joins any step
+    steps = []
+    i = 0
+    while i < T:
+        k = 1
+        while k < STEP_FRAMES and i + k < T and lo_i[i + k] > k:
+            k += 1
+        steps.append(k)
+        i += k
+    return np.asarray(steps, dtype=np.int64)
+
+
+def chain_floor_ms(rows: int, steps: int, device: torch.device, repeats: int = 10) -> float:
+    """The least time of ``steps`` dependent steps of the beat DP on ``rows`` rows, in ms.
 
     Launches the probe in ``csrc/beat_dp.cu`` that runs only what each step
-    of the kernel must do in order (a ring read, the five-level warp
-    reduction, the ring write), and returns its best time of ``repeats``
-    by CUDA events. A measurement for the bound: it adds nothing to
-    :data:`launches`.
+    of the kernel must do in order (the step's flags, a ring read, the
+    five-level warp reduction, the ring write, the block barrier), with
+    every step full, and returns its best time of ``repeats`` by CUDA events.
+    Give it the most steps of any row (:func:`step_schedule`). A measurement
+    for the bound: it adds nothing to :data:`launches`.
     """
     lib = _build.load("beat_dp")
-    fn = lib.beat_dp_chain_probe_launch
+    fn = lib.beat_dp_step_probe_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -171,14 +201,14 @@ def chain_floor_ms(rows: int, T: int, device: torch.device, repeats: int = 10) -
         for _ in range(repeats + 1):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record(stream)
-            err = fn(rows, T, out.data_ptr(), stream.cuda_stream)
+            err = fn(rows, steps, out.data_ptr(), stream.cuda_stream)
             end.record(stream)
             if err != 0:
-                raise RuntimeError(f"beat_dp chain probe launch failed with CUDA error {err}")
+                raise RuntimeError(f"beat_dp step probe launch failed with CUDA error {err}")
             end.synchronize()
             best = min(best, start.elapsed_time(end))
     if not bool(torch.isfinite(out).all()):
-        raise RuntimeError("beat_dp chain probe wrote non-finite values")
+        raise RuntimeError("beat_dp step probe wrote non-finite values")
     return best
 
 

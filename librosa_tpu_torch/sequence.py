@@ -15,12 +15,13 @@ yet.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ._device import as_tensor
+from ._device import as_tensor, device_table
 from .filters import get_window
 from .ops import viterbi as _viterbi
 from .util.exceptions import ParameterError
@@ -34,23 +35,32 @@ def _work_dtype(prob: torch.Tensor) -> torch.dtype:
     return torch.float64 if prob.dtype == torch.float64 else torch.float32
 
 
-def _decode(log_prob: torch.Tensor, log_trans: np.ndarray,
-            log_p_init: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+def _decode(log_prob: torch.Tensor, log_trans: np.ndarray, log_p_init: Any,
+            key: Optional[tuple] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode ``log_prob`` ``(..., n_states, n_steps)``: states ``(..., n_steps)`` int32 and logp ``(...)``.
 
     Float64 runs the plain version; float32 goes to the kernel's wrapper,
     which runs the plain version on the CPU and on the card launches the
-    kernel or raises.
+    kernel or raises. ``log_trans`` is a host array; ``key`` identifies it
+    (None: its bytes do). Its device copy and, where the cluster route
+    decodes it, its run table are made once per key and device and kept
+    (``device_table``, ``ops.viterbi.device_runs``).
     """
     lead = log_prob.shape[:-2]
     S, T = log_prob.shape[-2:]
     lp = log_prob.transpose(-2, -1).reshape(-1, T, S).contiguous()
-    lt = torch.as_tensor(log_trans, dtype=lp.dtype, device=lp.device)
+    log_trans = np.asarray(log_trans)
+    if key is None:
+        digest = hashlib.blake2b(np.ascontiguousarray(log_trans).tobytes(), digest_size=16)
+        key = ("log_trans", log_trans.shape, str(log_trans.dtype), digest.digest())
+    lt = device_table(key, lambda: log_trans, lp.device, lp.dtype)
     lpi = torch.as_tensor(log_p_init, dtype=lp.dtype, device=lp.device)
     if lp.dtype == torch.float64:
         states, logp = _viterbi.viterbi_reference(lp, lt, lpi)
     else:
-        states, logp = _viterbi.viterbi_decode(lp, lt, lpi)
+        runs = (_viterbi.device_runs(key, log_trans, lp.device)
+                if _viterbi.route_for(S, lp.shape[0]) == "cluster" else None)
+        states, logp = _viterbi.viterbi_decode(lp, lt, lpi, runs)
     return states.reshape(*lead, T), logp.reshape(lead)
 
 

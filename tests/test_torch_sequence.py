@@ -148,9 +148,9 @@ def test_decoders_send_float32_to_the_kernel_wrapper_and_float64_to_the_plain_ve
     calls = []
     wrapped = port_viterbi.viterbi_decode
 
-    def spy(lp, lt_, lpi):
+    def spy(lp, lt_, lpi, runs=None):
         calls.append(lp.dtype)
-        return wrapped(lp, lt_, lpi)
+        return wrapped(lp, lt_, lpi, runs)
 
     monkeypatch.setattr(port_viterbi, "viterbi_decode", spy)
     prob = np.random.RandomState(3).rand(3, 20)
