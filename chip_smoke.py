@@ -100,11 +100,12 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    with the peak memory;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
-   geometry, with the pipeline at WRAP 128 and 1024;
+   geometry, with the pipeline at WRAP 128 and 1024, and a strided row
+   probe whose output rows are not 16-byte aligned (the thread stores);
 6. drives the diagnostics through their entry points
    (``librosa_tpu_torch.diagnostics``), checks that they launched both
    kernels, and times each variant's kernel, plain version and
-   ``torch.sum`` yardstick beside its bound;
+   ``torch.sum`` yardstick beside its bound and the earlier design's time;
 7. times the row probe at the mel kernel's own tile geometry on the
    main-path buffer, beside the mel kernel's time, and prints every
    kernel as one ``{"kernels": [...]}`` JSON line;
@@ -153,6 +154,14 @@ H100_HBM_BYTES_S = 3.35e12
 H100_F32_FLOP_S = 67e12
 
 DIAG_FAR_WRAP = 1024     # the pipeline over 268.7 MB, beyond the 50 MB L2
+# the staged-copy kernels' first design (three slots, a block-wide barrier a chunk, whole
+# tiles a block, thread stores), ms: PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W
+DIAG_FIRST_MS = {"m0": 0.2143, "m_out": 0.3842, "m_outg4": 0.3851, "m_outg8": 0.3823,
+                 "m_outc": 0.3556, "m_edge": 0.3844, "m_kitchen": 0.4167,
+                 "m_kitchen_notab": 0.3890, "m_kitchen_nox": 0.4162, "m_kitchen_nooff": 0.4091,
+                 "m_kitchen_nostart": 0.4112, "m_kitchen_g1024": 0.1315, "scale_pre2d": 0.1434,
+                 "scale_flat512": 0.1425, "scale_flat128": 0.1411, "pipeline wrap 128": 0.2118,
+                 "pipeline wrap 1024": 0.3752}
 DIAG_RTOL = 1e-5         # sums of the same floats in two orders ...
 DIAG_ATOL_REL = 1e-5     # ... differ by a few ulps of the sum of their magnitudes
 
@@ -383,10 +392,11 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
     far = dma_bisect.Inputs(device, wrap=DIAG_FAR_WRAP, seed=1)
     cases = [dma_bisect.make_case(name, near) for name in dma_bisect.ALL_NAMES]
     cases += [dma_pipeline_micro.make_case(near), dma_pipeline_micro.make_case(far)]
+    unaligned = dma_bisect.unaligned_case(near)
 
     # 5. every variant's kernel against its plain version on the same input
     before = dict(staged_probe.launches)
-    errs = {case.name: check_case(torch, case) for case in cases}
+    errs = {case.name: check_case(torch, case) for case in [*cases, unaligned]}
     for kernel, n in staged_probe.launches.items():
         if n <= before[kernel]:
             raise AssertionError(f"the checks did not launch {kernel}")
@@ -411,15 +421,16 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
         plain_ms = time_ms(torch, case.plain, 5)
         library = case.library()
         library_ms = time_ms(torch, library, 5) if library is not None else None
-        bound = case.bound_ms
         timed[case.name] = dict(rec, plain_ms=plain_ms, library_ms=library_ms)
-        print(f"staged {case.name}: kernel {rec['ms']:.4f} ms, "
+        print(f"staged {case.name}: kernel {rec['ms']:.4f} ms (first design "
+              f"{DIAG_FIRST_MS[case.name]:.4f}), "
               f"{rec['us_per_tile_raw']:.4f} us/tile raw over {case.n_tiles} tiles, "
               f"staged {case.staged_bytes} B, unique read {case.read_bytes} B, written "
               f"{case.written_bytes} B, working set {case.read_bytes / 1e6:.1f} MB"
               f"{' (L2-resident)' if case.l2_resident else ''}; plain {plain_ms:.4f} ms, "
               f"library {'null' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
-              f"{'null (L2-resident)' if bound is None else f'{bound:.4f} ms (bytes)'}")
+              f"{case.bound_ms:.4f} ms ({case.bound_by}), "
+              f"{100 * case.bound_ms / rec['ms']:.1f} % of it")
 
     # 7. the row probe at the mel kernel's own tile geometry, on the main-path buffer
     k1 = dma_bisect.k1_staging_case(
@@ -427,10 +438,14 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
         frames_per_tile=fused_stft._tile_frames(MAIN["n_fft"], MAIN["hop_length"]))
     errs[k1.name] = check_case(torch, k1)
     k1_probe_ms = time_ms(torch, k1.run, 24)
+    k1_plain_ms = time_ms(torch, k1.plain, 3)
+    timed[k1.name] = dict(ms=k1_probe_ms, plain_ms=k1_plain_ms, library_ms=None)
     print(f"staging at the mel kernel's geometry ({k1.kwargs['rows_per_tile']} rows of "
           f"{k1.kwargs['width']} per tile, {k1.n_tiles} tiles of {k1.kwargs['tt']} frames, "
           f"output {tuple(k1.out.shape)}): {k1_probe_ms:.4f} ms, staged {k1.staged_bytes} B, "
-          f"written {k1.written_bytes} B; stft_mel kernel {k1_ms:.4f} ms in this run: this "
+          f"written {k1.written_bytes} B; plain {k1_plain_ms:.4f} ms, library null, bound "
+          f"{k1.bound_ms:.4f} ms ({k1.bound_by}), {100 * k1.bound_ms / k1_probe_ms:.1f} % of "
+          f"it; stft_mel kernel {k1_ms:.4f} ms in this run: this "
           f"TMA pipeline moves its bytes in {100 * k1_probe_ms / k1_ms:.2f} % of its time "
           f"(a floor for staging and write-back, not the kernel's own share)")
 
@@ -448,14 +463,14 @@ def staged_diagnostics(torch, device, y, k1_ms: float) -> list:
             "kernel_ms": head["ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": case.bound_ms,
-            "bound_by": "bytes",
+            "bound_by": case.bound_by,
             "library_ms": head["library_ms"],
             "headline": headline,
-            "variants": {n: timed[n]["ms"] for n in names},
+            "variants": {n: timed[n]["ms"] for n in names if n in timed},
         }
 
     colsum = [c.name for c in cases if c.kernel == "stage_colsum"]
-    rowprobe = [c.name for c in cases if c.kernel == "stage_rowprobe"]
+    rowprobe = [c.name for c in [*cases, unaligned, k1] if c.kernel == "stage_rowprobe"]
     return [
         entry("stage_colsum", f"pipeline wrap {DIAG_FAR_WRAP}", colsum,
               "D1 scripts/dma_bisect.py:72 make_m0; D6 scripts/dma_pipeline_micro.py:59 run"),

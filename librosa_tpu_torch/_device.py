@@ -43,7 +43,8 @@ def as_tensor(x: Any) -> torch.Tensor:
             "on the CPU, or pass a CPU tensor"
         )
     a = np.asarray(x)
-    if not a.flags.writeable:  # torch may share the buffer and warns on read-only ones
+    # torch may share the buffer: it warns on a read-only one and refuses negative strides
+    if not a.flags.writeable or any(s < 0 for s in a.strides):
         a = a.copy()
     return torch.as_tensor(a, device=device)
 

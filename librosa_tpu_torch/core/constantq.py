@@ -28,7 +28,7 @@ from .. import filters
 from .._device import as_tensor, device_table, exact_f32
 from ..ops.fused_stft import basis_bands
 from ..util.exceptions import ParameterError
-from ..util.utils import _torch_dtype, dtype_r2c, expand_to, fix_length, sparsify_rows, tiny
+from ..util.utils import _sparsify_dense, _torch_dtype, dtype_r2c, expand_to, fix_length, tiny
 from . import audio
 from .convert import cqt_frequencies, note_to_hz
 from .intervals import interval_frequencies
@@ -101,7 +101,7 @@ def _filters_fft_host(sr: float, freqs: np.ndarray, filter_scale: float, norm: O
     spectra = np.fft.fft(basis * (lengths[:, None] / float(n_fft)), n=n_fft,
                          axis=1)[:, :n_fft // 2 + 1]
     if sparsity > 0:
-        spectra = sparsify_rows(spectra, quantile=sparsity)
+        spectra = _sparsify_dense(spectra, quantile=sparsity)
     spectra.setflags(write=False)
     return spectra, n_fft, lengths
 

@@ -312,7 +312,7 @@ def _pyin_tables(sr: float, fmin: float, fmax: float, hop_length: int, n_thresho
     """pYIN's host constants in float64: thresholds, beta masses, log transition, log initial."""
     import scipy.stats
 
-    from ..sequence import _log_transition, transition_local, transition_loop
+    from ..sequence import transition_local, transition_loop
 
     thresholds = np.linspace(0, 1, n_thresholds + 1)
     beta_probs = np.diff(scipy.stats.beta.cdf(thresholds, beta_parameters[0],
@@ -324,7 +324,11 @@ def _pyin_tables(sr: float, fmin: float, fmax: float, hop_length: int, n_thresho
     transition = np.kron(transition_loop(2, 1 - switch_prob),
                          transition_local(n_pitch_bins, width, window="triangle", wrap=False))
     eps = np.finfo(np.float64).tiny
-    log_trans = _log_transition(transition, eps, transition_min_prob)
+    log_trans = np.log(transition + eps)
+    # pruned only above 0, never refused: a state left with no transition decodes with every
+    # score -inf, as the JAX package's pYIN does
+    if transition_min_prob is not None and transition_min_prob > 0:
+        log_trans = np.where(log_trans >= np.log(transition_min_prob + eps), log_trans, -np.inf)
     log_p_init = np.log(np.full(2 * n_pitch_bins, 1 / (2 * n_pitch_bins)) + eps)
     return thresholds, beta_probs, log_trans, log_p_init
 

@@ -8,8 +8,8 @@ device memory into shared memory and reduces them, through the kernels of
   m_out        a row probe per tile, written as a (128, 128) slab at
                columns i*128 of a (128, n_tiles*128) output: 128 runs of
                512 B per tile
-  m_outg4/g8   the same, one block taking 4 / 8 consecutive tiles, so that
-               it writes runs of 2 KB / 4 KB
+  m_outg4/g8   the same, 4 / 8 consecutive tiles gathered before they are
+               written, so that the kernel writes runs of 2 KB / 4 KB
   m_outc       the (n_tiles, 128, 128) layout: one contiguous 64 KB slab
   m_edge       m_out with the first and last tile read from an edge buffer
   m_kitchen    m_edge, plus the probe read 6 rows into the tile, a term
@@ -67,6 +67,8 @@ KITCHEN_OFFSET = 6          # rows into the tile where the kitchen's probe start
 KITCHEN_SCRATCH = 128       # ones in the scratch row
 L2_BYTES = 50 * 10**6       # H100 L2
 HBM_BYTES_S = 3.35e12       # H100 SXM datasheet
+F32_ADD_S = 33.5e12         # H100 SXM: float32 adds outside the tensor cores (the
+                            # datasheet's 67 TFLOP/s counts a fused multiply-add as two)
 CALLS = 24
 
 VARIANTS: Dict[str, dict] = {
@@ -213,19 +215,27 @@ class Case:
         return self.read_bytes < L2_BYTES
 
     @property
-    def bound_ms(self) -> Optional[float]:
-        """The bytes that must cross the HBM interface, over its rate; None if none must.
+    def bound_terms(self) -> Dict[str, float]:
+        """The least times, in ms, of the call's bytes and of its operations.
 
-        A working set beyond L2 is read once and the output written once.
-        Where the reads are L2-resident, an output that itself exceeds L2
-        still has to be written out, so it alone is the bound; an output
-        that fits as well leaves no HBM bound.
+        Bytes: each unique input byte read once and each output byte written
+        once, over the HBM rate, whether or not the reads would hit the L2.
+        Operations: one float32 add per staged float, over the card's rate
+        of float32 adds.
         """
-        if not self.l2_resident:
-            return 1e3 * (self.read_bytes + self.written_bytes) / HBM_BYTES_S
-        if self.written_bytes >= L2_BYTES:
-            return 1e3 * self.written_bytes / HBM_BYTES_S
-        return None
+        return {"bytes": 1e3 * (self.read_bytes + self.written_bytes) / HBM_BYTES_S,
+                "operations": 1e3 * (self.staged_bytes // 4) / F32_ADD_S}
+
+    @property
+    def bound_by(self) -> str:
+        """Which of :attr:`bound_terms` is the larger: ``"bytes"`` or ``"operations"``."""
+        terms = self.bound_terms
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_ms(self) -> float:
+        """The least time the card could take for the call: the larger of :attr:`bound_terms`."""
+        return max(self.bound_terms.values())
 
 
 def make_case(name: str, inputs: Inputs, *, n_tiles: int = N_TILES) -> Case:
@@ -302,6 +312,24 @@ def k1_staging_case(y: torch.Tensor, *, n_fft: int = 2048, hop: int = 512,
     return Case("k1_geometry", "stage_rowprobe", y.reshape(-1), kw, out=out)
 
 
+def unaligned_case(inputs: Inputs, *, n_tracks: int = 3, tiles_per_track: int = 100,
+                   n_out: int = 5) -> Case:
+    """A strided row probe whose output rows are not 16-byte aligned, over ``inputs.rows``.
+
+    ``out_cols = 30 * tiles_per_track - 7`` (not a multiple of 4) clips each
+    track's last tile; a tile is 40 rows (three chunks of 16, 16 and 8 rows),
+    its 30 probe runs start 3 rows in, and two tiles of a track are gathered
+    per store (``group=2``). The kernel writes these rows by thread stores.
+    """
+    tt, rows_per_tile = 30, 40
+    track_rows = tiles_per_track * rows_per_tile
+    kw = dict(rows_per_tile=rows_per_tile, width=HOP, tt=tt, n_tiles=n_tracks * tiles_per_track,
+              tiles_per_track=tiles_per_track, track_rows=track_rows, tile_stride=rows_per_tile,
+              wrap=None, n_out=n_out, out_cols=tt * tiles_per_track - 7, probe_offset=3)
+    out = inputs.out((n_tracks, n_out, tt * tiles_per_track - 7))
+    return Case("unaligned_strided", "stage_rowprobe", inputs.rows, kw, group=2, out=out)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -366,7 +394,7 @@ def measure(case: Case, floor: Tuple[float, float], *, calls: int = CALLS,
                 us_per_tile_raw=raw_us, us_per_tile=net_us, at_floor=at_floor,
                 gb_s=rate, n_tiles=case.n_tiles, staged_bytes=case.staged_bytes,
                 read_bytes=ws, written_bytes=case.written_bytes,
-                l2_resident=case.l2_resident, bound_ms=case.bound_ms)
+                l2_resident=case.l2_resident, bound_ms=case.bound_ms, bound_by=case.bound_by)
 
 
 def run(names: List[str], *, device="cuda", n_tiles: int = N_TILES, wrap: int = WRAP,

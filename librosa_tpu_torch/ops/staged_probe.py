@@ -29,8 +29,12 @@ Source note. ``stage_colsum`` replaces the TPU kernels of
 add per staged float. A tile's full span is staged (144 rows of 512 floats,
 288 KB, at the default geometry), which is more than a block's 227 KB of
 shared memory, so the kernels stage it in chunks of whole rows of at most
-32 KB, each one TMA bulk copy into a ring of three slots, reduced while the
-next chunks are in flight.
+32 KB, each one TMA bulk copy into a ring of as many slots as half an SM's
+shared memory holds (two blocks an SM). One producer warp keeps the ring
+full, eight consumer warps reduce it, each block takes an equal range of
+(tile, chunk) pairs, and a store warp writes the row probe's output from
+shared memory with its own float4 stores while the staging goes on
+(``csrc/staged_probe.cu``, ``csrc/staged_schedule.cuh``).
 """
 
 from __future__ import annotations
@@ -262,8 +266,9 @@ def rowprobe(rows: torch.Tensor, *, rows_per_tile: int = 144, width: int = 512, 
     ``contiguous``. ``edges`` is ``(n_tracks * n_edge, rows_per_tile,
     width)``; ``tables`` any float32 tensor whose sum is added; ``scratch``
     a count of ones whose sum is added. ``group`` is how many consecutive
-    tiles one block takes, so one block writes ``group * tt`` contiguous
-    floats of each strided output row; it does not change the result.
+    tiles of a track the kernel gathers before it writes them, so that each
+    strided output row is written as one run of up to ``group * tt``
+    contiguous floats; it does not change the result.
     On a CUDA tensor this launches the kernel or raises; on a CPU tensor
     it returns :func:`rowprobe_reference`. ``out`` may be a preallocated
     output of the right shape.

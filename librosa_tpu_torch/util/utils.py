@@ -545,14 +545,8 @@ def phasor(angles: Any, *, mag: Any = None) -> torch.Tensor:
     return z
 
 
-def sparsify_rows(x: Any, *, quantile: float = 0.01, dtype: Any = None) -> np.ndarray:
-    """``x`` with each row's smallest entries set to zero, as a dense host array.
-
-    Per row, the entries are taken in rising order of magnitude until their
-    share of the row's total magnitude would reach ``quantile``; those are
-    zeroed, and every entry at least as large as the first one kept stays.
-    A vector is one row. The result has ``x``'s dtype, or ``dtype``.
-    """
+def _sparsify_dense(x: Any, *, quantile: float = 0.01, dtype: Any = None) -> np.ndarray:
+    """:func:`sparsify_rows` as a dense host array."""
     x = np.atleast_2d(np.asarray(x))
     if x.ndim != 2:
         raise ParameterError(f"sparsify_rows takes a vector or a matrix, not shape {x.shape}")
@@ -565,6 +559,20 @@ def sparsify_rows(x: Any, *, quantile: float = 0.01, dtype: Any = None) -> np.nd
     first_kept = (share < quantile).sum(axis=1)
     floor = np.take_along_axis(ranked, first_kept[:, None], axis=1)
     return np.where(mags >= floor, x, 0).astype(x.dtype if dtype is None else dtype)
+
+
+def sparsify_rows(x: Any, *, quantile: float = 0.01, dtype: Any = None):
+    """``x`` with each row's smallest entries set to zero, as a ``scipy.sparse.csr_matrix``.
+
+    Per row, the entries are taken in rising order of magnitude until their
+    share of the row's total magnitude would reach ``quantile``; those are
+    zeroed, and every entry at least as large as the first one kept stays.
+    A vector is one row. The result has ``x``'s dtype, or ``dtype``.
+    """
+    import scipy.sparse
+
+    dense = _sparsify_dense(x, quantile=quantile, dtype=dtype)
+    return scipy.sparse.csr_matrix(dense, shape=dense.shape)
 
 
 def _softmask_core(X: torch.Tensor, X_ref: torch.Tensor, *, power: float,

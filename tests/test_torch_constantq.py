@@ -18,6 +18,7 @@ own float64 run; 130 dB before the first round).
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import librosa_tpu as lt
@@ -158,9 +159,10 @@ def test_sparsify_rows_matches_jax():
     x = np.random.RandomState(3).randn(6, 50) * np.exp(np.random.RandomState(4).randn(6, 50))
     for q in (0.0, 0.01, 0.2, 0.9):
         got = L.util.sparsify_rows(x, quantile=q)
-        assert isinstance(got, np.ndarray)
-        np.testing.assert_array_equal(got, lt.util.sparsify_rows(x, quantile=q).toarray())
-    np.testing.assert_array_equal(L.util.sparsify_rows(x[0], quantile=0.1),
+        assert isinstance(got, scipy.sparse.csr_matrix)  # as the JAX function returns
+        np.testing.assert_array_equal(got.toarray(),
+                                      lt.util.sparsify_rows(x, quantile=q).toarray())
+    np.testing.assert_array_equal(L.util.sparsify_rows(x[0], quantile=0.1).toarray(),
                                   lt.util.sparsify_rows(x[0], quantile=0.1).toarray())
     with pytest.raises(L.ParameterError):
         L.util.sparsify_rows(x, quantile=1.0)

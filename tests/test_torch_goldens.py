@@ -33,7 +33,7 @@ PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs", "filters_chro
           "onset_strength", "onset_backtrack", "superflux", "beat", "plp", "rhythm",
           "rhythm_extras", "tempo_configs", "fourier_tempo_variants", "yin", "yin_configs", "pyin",
           "viterbi", "util_peak_pick", "util_matching", "sync_aggregates", "harmonics",
-          "harmonics_2d"]
+          "harmonics_2d", "util_sparsify"]
 
 
 def _to_host(x):

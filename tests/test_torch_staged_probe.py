@@ -203,7 +203,11 @@ def test_case_byte_counts(inputs):
     m0 = dma_bisect.make_case("m0", inputs)  # 4096 tiles over the 3 starts
     assert m0.staged_bytes == 4096 * 144 * 512 * 4
     assert m0.read_bytes == (2 * 128 + 144) * 512 * 4 and m0.l2_resident
-    assert m0.bound_ms is None
+    # an L2-resident working set still has its bound; over 3 starts the 0.8 MB of reads take
+    # less time than one add per staged float
+    assert m0.bound_by == "operations"
+    assert m0.bound_ms == pytest.approx(1e3 * 4096 * 144 * 512 / 33.5e12)
+    assert m0.bound_terms["bytes"] == pytest.approx(1e3 * (m0.read_bytes + 512 * 4) / 3.35e12)
     kitchen = dma_bisect.make_case("m_kitchen", inputs, n_tiles=N_TILES)
     # interior tiles 1..4 start at rows 128, 256, 0, 128; two edge slots; the tables
     assert kitchen.read_bytes == 4 * ((2 * 128 + 144) * 512 + 2 * 144 * 512 + 184864)
@@ -211,13 +215,31 @@ def test_case_byte_counts(inputs):
 
 @pytest.mark.parametrize("name", ["m_out", "m_edge", "m_kitchen"])
 def test_bound_counts_an_output_beyond_l2(inputs, name):
-    # reads L2-resident, but 268 MB of output must reach HBM: the writes alone bound it
+    # the 268 MB output is written once and the unique input read once, L2 or not
     case = dma_bisect.make_case(name, inputs)
     assert case.l2_resident and case.written_bytes == 128 * 4096 * 128 * 4
-    assert case.bound_ms == pytest.approx(1e3 * case.written_bytes / 3.35e12)
-    assert 0.079 < case.bound_ms < 0.081
+    assert case.bound_by == "bytes"
+    assert case.bound_ms == pytest.approx(1e3 * (case.read_bytes + case.written_bytes) / 3.35e12)
+    assert 0.0801 < case.bound_ms < 0.081
     small = dma_bisect.make_case(name, inputs, n_tiles=N_TILES)   # a few tiles: all in L2
-    assert small.l2_resident and small.bound_ms is None
+    assert small.l2_resident
+    assert small.bound_ms == pytest.approx(max(
+        1e3 * (small.read_bytes + small.written_bytes) / 3.35e12,
+        1e3 * N_TILES * 144 * 512 / 33.5e12))
+
+
+# the bound at the diagnostics' default wrap of 128 (a 33.6 MB buffer): ms, and what bounds it
+DEFAULT_BOUNDS = {"m0": (0.01003, "bytes"), "m_out": (0.09016, "bytes"),
+                  "m_edge": (0.09033, "bytes"), "m_kitchen": (0.09055, "bytes"),
+                  "m_kitchen_g1024": (0.03046, "bytes")}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_BOUNDS))
+def test_bound_at_the_default_geometry(name):
+    inputs = dma_bisect.Inputs("cpu", rows=torch.zeros((dma_bisect.WRAP * 128 + 144) * 512))
+    case = dma_bisect.make_case(name, inputs)
+    ms, by = DEFAULT_BOUNDS[name]
+    assert case.bound_by == by and case.bound_ms == pytest.approx(ms, abs=1e-5)
 
 
 def test_scale_bound_counts_unique_reads_and_writes():
