@@ -98,6 +98,28 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    plain versions, bounds and probes (A's step chain, B's cluster exchange,
    ``cudaOccupancyMaxActiveClusters``), beside the earlier designs' times,
    with the peak memory;
+4j. alignment and structure on bench.py's 5 s chirp tiled to the main
+   shape (each track from its own point of the sweep, over a seeded noise
+   floor): ``feature.mfcc`` and ``chroma_stft`` of the 16 tracks (the mel
+   kernel, held against its plain version there), then on one or two
+   tracks of 8193 frames ``segment.recurrence_matrix`` (connectivity,
+   sparse affinity), ``recurrence_to_lag``, ``cross_similarity``,
+   ``decompose.nn_filter`` on chroma, ``sequence.dtw`` between two tracks'
+   chroma (8193 x 8193 cells) and ``sequence.rqa`` on a cosine affinity of
+   the first 2048 frames (the RQA DP is host numpy, as in the JAX package:
+   the cut). Each neighbour search is held against float64 (the same
+   candidates but for near-ties, which are named), the graphs against the
+   rule applied to those candidates, the affinity, ``nn_filter`` and ``D``
+   against float64 at stated floors, the lag exactly, the RQA corner bit
+   for bit against a scalar float64 loop; device parts timed by CUDA
+   events, the host DPs by the host clock, with the peak memory;
+4k. the effects on the main buffer: ``time_stretch`` at 1.25 and 0.8,
+   ``pitch_shift`` by 3 semitones (``res_type='fft'``), ``remix`` with and
+   without zero crossings, ``trim`` and ``split`` on a copy with silence,
+   ``preemphasis`` and ``deemphasis``; each against float64 numpy and scipy
+   on track 0 (remix, trim and split exactly), the synthesis kernel at the
+   slow stretch's shape bit for bit and the dB kernel at trim's against
+   their plain versions; times and peak memory;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024, and a strided row
@@ -2224,6 +2246,517 @@ def config5_phase(torch, L, device) -> dict:
             "viterbi": vit_entry, "e2e_ms": e2e_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phases 4j and 4k: alignment and structure; effects
+# ---------------------------------------------------------------------------
+
+STRUCT_PERIOD_S = 5.0      # bench.py's synthetic chirp: 110 Hz to 8 kHz in 5 s, tiled
+STRUCT_NOISE = 0.01        # a seeded noise floor 40 dB under the chirp
+AFFINITY_RTOL = 1e-4       # the recurrence golden's rtol: float32 distances into exp(-d / bw)
+NN_FILTER_RTOL = 1e-6      # a float64 mean over the same neighbours, stored as float32
+DTW_RTOL = 1e-9            # the same float64 costs accumulated in another order
+RQA_FRAMES = 2048          # the RQA DP is host numpy over N x M cells: cut to 2048 frames
+RQA_CORNER = 384           # cells checked against a scalar float64 loop (it runs in Python)
+MIN_STRETCH_SNR_DB = 45.0  # the time_stretch / pitch_shift goldens' floor (float32 phase sums)
+MIN_PV_MAG_SNR_DB = 60.0   # the phase_vocoder golden's floor, on the magnitudes
+MIN_PRE_SNR_DB = 130.0     # an FIR of two taps in float32: 148 dB on the CPU
+MIN_DE_SNR_DB = 120.0      # the doubling scan in float32: 132.5 dB on the CPU (golden 125)
+TRIM_TIE_DB = 1e-3         # a frame this close to the threshold in float64 may go either way
+
+
+def chirp_batch(torch, L, device):
+    """The structure phase's input: bench.py's 5 s chirp tiled to ``MAIN_SHAPE``, each track
+    started at its own point of the sweep, over a seeded noise floor, as float32 on ``device``."""
+    rows, n = MAIN_SHAPE
+    base = np.asarray(L.chirp(fmin=110, fmax=8000, sr=SR, duration=STRUCT_PERIOD_S))
+    tiled = np.tile(base, -(-n // len(base)) + 1)
+    shift = len(base) // rows
+    y = np.stack([tiled[r * shift:r * shift + n] for r in range(rows)])
+    y = y + STRUCT_NOISE * np.random.RandomState(7).randn(rows, n)
+    return torch.from_numpy(y.astype(np.float32)).to(device)
+
+
+def knn64(Q, C, m, *, exclude_self):
+    """The ``m`` nearest rows of ``C`` to each row of ``Q`` in float64 numpy: (dist, idx), nearest first."""
+    Q = np.asarray(Q, np.float64)
+    C = np.asarray(C, np.float64)
+    mu = C.mean(axis=0)
+    Q, C = Q - mu, C - mu
+    c_sq = np.sum(C * C, axis=1)
+    dist = np.empty((len(Q), m))
+    idx = np.empty((len(Q), m), dtype=np.int64)
+    for s in range(0, len(Q), 1024):
+        q = Q[s:s + 1024]
+        d = np.sqrt(np.maximum(np.sum(q * q, axis=1)[:, None] + c_sq[None] - 2 * q @ C.T, 0))
+        if exclude_self:
+            rows = np.arange(len(q))
+            d[rows, s + rows] = np.inf
+        part = np.argpartition(d, m, axis=1)[:, :m + 1]
+        pd = np.take_along_axis(d, part, axis=1)
+        order = np.lexsort((part, pd), axis=1)[:, :m]
+        idx[s:s + 1024] = np.take_along_axis(part, order, axis=1)
+        dist[s:s + 1024] = np.take_along_axis(pd, order, axis=1)
+    return dist, idx
+
+
+def pair_dist64(Q, C, rows, cols):
+    """Float64 distances of the pairs (``rows[i]``, ``cols[i]``)."""
+    Q = np.asarray(Q, np.float64)
+    C = np.asarray(C, np.float64)
+    return np.sqrt(np.sum((Q[rows] - C[cols]) ** 2, axis=1))
+
+
+def check_neighbours(label, d32, i32, Q, C, m, *, exclude_self):
+    """The card's ``m`` nearest candidates against float64: the same sets, except near-ties.
+
+    A near-tie is a candidate that only one side keeps and whose float64
+    distance lies within the float32 search's own error of the m-th
+    distance: four times the largest gap between the card's distance and
+    float64's over that row's candidates. They are named. Returns the count.
+    """
+    d64, i64 = knn64(Q, C, m, exclude_self=exclude_self)
+    n = len(Q)
+    rows = np.repeat(np.arange(n), m)
+    own64 = pair_dist64(Q, C, rows, i32.ravel()).reshape(n, m)
+    err = np.abs(d32.astype(np.float64) - own64).max(axis=1)
+    tol = 4 * np.maximum(err, 1e-12 * d64[:, -1])
+    ties, bad = [], []
+    for r in np.flatnonzero(np.any(np.sort(i32, axis=1) != np.sort(i64, axis=1), axis=1)):
+        only = np.setxor1d(i32[r], i64[r])
+        gaps = np.abs(pair_dist64(Q, C, np.full(len(only), r), only) - d64[r, -1])
+        (ties if np.all(gaps <= tol[r]) else bad).append((int(r), only.tolist(),
+                                                          float(gaps.max()), float(tol[r])))
+    print(f"{label}: {n} frames x {m} candidates against float64: {len(ties)} frames differ "
+          f"at near-ties{' ' + str(ties[:8]) if ties else ''}; largest float32 distance error "
+          f"{float(err.max()):.3e} (largest m-th distance {float(d64[:, -1].max()):.4g})")
+    if bad:
+        raise AssertionError(f"{label}: candidates differ from float64 beyond near-ties "
+                             f"(frame, candidates, gap, tolerance): {bad[:8]}")
+    return len(ties)
+
+
+def recurrence_from_candidates(i32, n, k, width, *, nearest):
+    """The kept links of a recurrence matrix, as a set of (neighbour, frame) pairs, from the
+    candidates: drop |i - j| < width, then keep ``k`` (the nearest, or the lowest indices)."""
+    links = set()
+    for j, cand in enumerate(i32):
+        cand = [int(c) for c in cand if abs(int(c) - j) >= width]
+        for c in (cand[:k] if nearest else sorted(cand)[:k]):
+            links.add((c, j))
+    return links
+
+
+def dtw64(C):
+    """Accumulated DTW cost in float64 numpy by anti-diagonals (steps (1,1), (0,1), (1,0))."""
+    N, M = C.shape
+    D = np.full((N, M), np.inf)
+    D[0] = np.cumsum(C[0])
+    D[:, 0] = np.cumsum(C[:, 0])
+    for s in range(2, N + M - 1):
+        i = np.arange(max(1, s - M + 1), min(N - 1, s - 1) + 1)
+        j = s - i
+        D[i, j] = C[i, j] + np.minimum(np.minimum(D[i - 1, j - 1], D[i - 1, j]), D[i, j - 1])
+    return D
+
+
+def rqa64(sim, n, gap_onset=1.0, gap_extend=1.0):
+    """RQA's score over the top-left ``n x n`` cells, by a scalar float64 loop (knight moves on)."""
+    sim = np.asarray(sim, np.float64)[:n, :n].tolist()
+    score = [[0.0] * n for _ in range(n)]
+    for i in range(n):
+        score[i][0] = sim[i][0]
+        score[0][i] = sim[0][i]
+    for i in range(1, n):
+        for j in range(1, n):
+            cands = []
+            for di, dj in ((1, 1), (1, 2), (2, 1)):
+                if i >= di and j >= dj:
+                    cands.append((score[i - di][j - dj], sim[i - di][j - dj] > 0))
+                else:
+                    cands.append((0.0, False))
+            if sim[i][j] > 0:
+                score[i][j] = max(s for s, _ in cands) + sim[i][j]
+            else:
+                score[i][j] = max(0.0, max(s - (gap_onset if t else gap_extend)
+                                           for s, t in cands))
+    return np.array(score)
+
+
+def structure_phase(torch, L, device, win) -> dict:
+    """Phase 4j: alignment and structure on the chirp batch, checked against float64 and timed."""
+    import scipy.sparse
+    import scipy.spatial.distance
+
+    from librosa_tpu_torch.ops import db_scale, fused_stft, knn, median, ola_norm
+
+    y = chirp_batch(torch, L, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
+    mfcc = L.feature.mfcc(y=y, sr=SR)
+    chroma = L.feature.chroma_stft(y=y, sr=SR)
+    torch.cuda.synchronize()
+    X0, X1 = mfcc[0], mfcc[1]
+    t = X0.shape[-1]
+    times = {}
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    R, times["recurrence connectivity (search + host graph)"] = host_s(
+        lambda: L.segment.recurrence_matrix(X0))
+    A, times["recurrence affinity, sparse"] = host_s(
+        lambda: L.segment.recurrence_matrix(X0, mode="affinity", sparse=True))
+    lag, times["recurrence_to_lag, sparse"] = host_s(
+        lambda: L.segment.recurrence_to_lag(scipy.sparse.csc_matrix(R)))
+    xsim, times["cross_similarity"] = host_s(lambda: L.segment.cross_similarity(X1, X0))
+    nn, times["nn_filter (search + host product)"] = host_s(
+        lambda: L.decompose.nn_filter(chroma[0]))
+    (D, wp), times["dtw (card cost + host DP + backtrack)"] = host_s(
+        lambda: L.sequence.dtw(X=chroma[0], Y=chroma[1]))
+    sim, times["rqa input: cosine affinity, sym"] = host_s(
+        lambda: L.segment.recurrence_matrix(chroma[0][:, :RQA_FRAMES], mode="affinity",
+                                            metric="cosine", sym=True))
+    (score, path), times["rqa (host DP + backtrack)"] = host_s(lambda: L.sequence.rqa(sim))
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "ola_norm": ola_norm.launches, "median_filter": median.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    print(f"structure: y {tuple(y.shape)} -> mfcc {tuple(mfcc.shape)}, chroma "
+          f"{tuple(chroma.shape)}; R {R.shape} {R.dtype}, A {A.shape} {A.format} ({A.nnz} links), "
+          f"lag {lag.shape}, xsim {xsim.shape}, nn_filter {nn.shape}, D {D.shape}, path "
+          f"{wp.shape}, rqa score {score.shape}, path {path.shape}; launches {counts}; peak "
+          f"memory {peak_bytes} bytes, {peak_bytes - base_bytes} above the {base_bytes} held "
+          f"before")
+    if counts["stft_mel"] < 2 or counts["ola_norm"] or counts["median_filter"]:
+        raise AssertionError(f"structure launched {counts}: the mel kernel carries mfcc and "
+                             "chroma, no synthesis or median")
+    if R.shape != (t, t) or R.dtype != bool or xsim.shape != (t, t) or D.shape != (t, t):
+        raise AssertionError(f"structure shapes {R.shape} {R.dtype}, {xsim.shape}, {D.shape}")
+
+    # K1 at this path's input against its plain version, track by track
+    mel_basis = L.filters.mel(sr=SR, n_fft=2048, n_mels=128)
+    win_d = torch.from_numpy(win.astype(np.float32)).to(device)
+    basis_d = torch.from_numpy(mel_basis.astype(np.float32)).to(device)
+    got = checked_kernel(torch, fused_stft, y, win_d, basis_d, n_fft=2048, hop_length=512)
+    want = fused_stft.stft_mel_reference(y, win_d, basis_d, n_fft=2048, hop_length=512)
+    err = (got.double() - want.double()).square().sum(dim=(-2, -1))
+    k1_snr = float((10 * torch.log10(want.double().square().sum(dim=(-2, -1))
+                                     / err.clamp(min=1e-300))).min())
+    print(f"stft_mel kernel vs plain on the chirp batch, worst track: {k1_snr:.1f} dB "
+          f"(floor {MIN_SNR_DB})")
+    if not k1_snr >= MIN_SNR_DB:
+        raise AssertionError(f"stft_mel on the chirp batch: {k1_snr:.1f} dB < {MIN_SNR_DB}")
+    del got, want, err
+
+    # the searches against float64: the card's candidates, then the graphs built from them
+    Q0, Q1 = X0.T.cpu().numpy(), X1.T.cpu().numpy()
+    width = 1
+    k = int(2 * np.ceil(np.sqrt(t - 2 * width + 1)))
+    m = min(t - 1, k + 2 * width)
+    d32, i32 = knn.topm(X0.T, X0.T, m, exclude_self=True)
+    ties = check_neighbours("recurrence search (mfcc, track 0)", d32, i32, Q0, Q0, m,
+                            exclude_self=True)
+    links = recurrence_from_candidates(i32, t, k, width, nearest=False)
+    got_links = set(zip(*(v.tolist() for v in np.nonzero(R))))
+    if got_links != links:
+        raise AssertionError(f"recurrence connectivity: {len(got_links ^ links)} links differ "
+                             "from the pruning rule applied to the card's candidates")
+    # affinity: the k nearest after the band, exp(-d64 / median of each frame's k-th distance)
+    near = recurrence_from_candidates(i32, t, k, width, nearest=True)
+    cols, rows = np.array(sorted((j, i) for i, j in near)).T
+    d_link = pair_dist64(Q0, Q0, cols, rows)
+    kth = np.full(t, -np.inf)
+    np.maximum.at(kth, cols, d_link)
+    aff64 = np.exp(-d_link / np.nanmedian(np.where(np.isfinite(kth), kth, np.nan)))
+    got_aff = np.asarray(A[rows, cols]).ravel()
+    aff_err = float(np.max(np.abs(got_aff - aff64) / aff64))
+    print(f"recurrence affinity against float64 over {len(aff64)} links: max relative error "
+          f"{aff_err:.3e} (rtol {AFFINITY_RTOL})")
+    if A.nnz != len(aff64) or not aff_err <= AFFINITY_RTOL:
+        raise AssertionError(f"recurrence affinity: {A.nnz} links, relative error {aff_err:.3e}")
+    lag_rows, lag_cols = lag.nonzero()
+    want_lag = {((i - j) % (2 * t), j) for i, j in got_links}
+    if set(zip(lag_rows.tolist(), lag_cols.tolist())) != want_lag or lag.shape != (2 * t, t):
+        raise AssertionError("recurrence_to_lag: links not at (i - j mod 2n, j)")
+    k_x = int(min(t, 2 * np.ceil(np.sqrt(t))))
+    dx, ix = knn.topm(X1.T, X0.T, k_x)
+    ties += check_neighbours("cross_similarity search (mfcc, track 1 against 0)", dx, ix, Q1,
+                             Q0, k_x, exclude_self=False)
+    want_x = {(int(c), j) for j, row in enumerate(ix) for c in row}
+    if set(zip(*(v.tolist() for v in np.nonzero(xsim)))) != want_x:
+        raise AssertionError("cross_similarity links differ from the card's candidates")
+
+    # nn_filter: the chroma graph against float64, then the mean over it in float64
+    S0 = chroma[0].cpu().numpy()
+    dc, ic = knn.topm(chroma[0].T, chroma[0].T, m, exclude_self=True)
+    ties += check_neighbours("nn_filter search (chroma, track 0)", dc, ic, S0.T, S0.T, m,
+                             exclude_self=True)
+    nbrs = [[] for _ in range(t)]
+    for i, j in recurrence_from_candidates(ic, t, k, width, nearest=False):
+        nbrs[j].append(i)
+    S64 = S0.astype(np.float64)
+    want_nn = np.stack([S64[:, sorted(v)].mean(axis=1) if v else S64[:, j]
+                        for j, v in enumerate(nbrs)], axis=1)
+    nn_err = float(np.max(np.abs(nn - want_nn) / np.maximum(np.abs(want_nn), 1e-30)))
+    print(f"nn_filter against a float64 mean over the same neighbours: max relative error "
+          f"{nn_err:.3e} (rtol {NN_FILTER_RTOL})")
+    if not nn_err <= NN_FILTER_RTOL:
+        raise AssertionError(f"nn_filter: {nn_err:.3e} > {NN_FILTER_RTOL}")
+
+    # dtw against a float64 anti-diagonal DP over scipy's float64 cost
+    C0, C1 = chroma[0].T.cpu().double().numpy(), chroma[1].T.cpu().double().numpy()
+    t0 = time.perf_counter()
+    C64 = scipy.spatial.distance.cdist(C0, C1)
+    D64 = dtw64(C64)
+    times["float64 reference dtw (scipy cost + anti-diagonals)"] = time.perf_counter() - t0
+    dtw_err = float(np.max(np.abs(D - D64) / np.maximum(D64, 1e-300)))
+    steps = -np.diff(wp, axis=0)
+    path_cost = float(C64[wp[:, 0], wp[:, 1]].sum())
+    print(f"dtw {C64.shape} against float64: max relative error of D {dtw_err:.3e} (rtol "
+          f"{DTW_RTOL}); path of {len(wp)} cells costs {path_cost:.10g}, D[-1, -1] "
+          f"{float(D64[-1, -1]):.10g}")
+    if not dtw_err <= DTW_RTOL:
+        raise AssertionError(f"dtw D: {dtw_err:.3e} > {DTW_RTOL}")
+    if (wp[0].tolist() != [t - 1, t - 1] or wp[-1].tolist() != [0, 0]
+            or not all(tuple(s) in ((1, 1), (0, 1), (1, 0)) for s in steps)
+            or not abs(path_cost - D64[-1, -1]) <= DTW_RTOL * D64[-1, -1]):
+        raise AssertionError("dtw path: not a monotone path of the optimal cost")
+    del C64, D64, D
+
+    # rqa: the top-left corner against a scalar float64 loop, bit for bit; the path's moves
+    t0 = time.perf_counter()
+    want_score = rqa64(sim, RQA_CORNER)
+    times[f"float64 reference rqa ({RQA_CORNER}^2 cells, scalar)"] = time.perf_counter() - t0
+    path = path.astype(np.int64)
+    moves = np.diff(path, axis=0)
+    if not np.array_equal(score[:RQA_CORNER, :RQA_CORNER], want_score):
+        raise AssertionError("rqa score: the corner differs from the scalar float64 loop")
+    if (len(path) == 0 or tuple(path[-1]) != np.unravel_index(np.argmax(score), score.shape)
+            or not all(tuple(mv) in ((1, 1), (1, 2), (2, 1)) for mv in moves)):
+        raise AssertionError("rqa path: does not end at the best score by the DP's moves")
+    print(f"rqa on {sim.shape} (cut from {t} frames): the {RQA_CORNER}^2 corner bit-equal to a "
+          f"scalar float64 loop; path of {len(path)} cells to the best score "
+          f"{float(score.max()):.6g}; {ties} near-tie frames in all")
+
+    # device parts alone, by CUDA events
+    device_ms = {
+        "mfcc (16 tracks)": time_ms(torch, lambda: L.feature.mfcc(y=y, sr=SR), 3),
+        "chroma_stft (16 tracks)": time_ms(torch, lambda: L.feature.chroma_stft(y=y, sr=SR), 3),
+        "topm, recurrence (8193 x 8193, m 184)": time_ms(
+            torch, lambda: knn.topm(X0.T, X0.T, m, exclude_self=True), 3),
+        "dtw cost on the card (torch.cdist float64)": time_ms(
+            torch, lambda: torch.cdist(chroma[0].T.double(), chroma[1].T.double(),
+                                       compute_mode="donot_use_mm_for_euclid_dist"), 3),
+    }
+    Xc = (X0.T - X0.T.mean(dim=0)).contiguous()
+    block = Xc[:4096]
+    device_ms["topm block: product + sort (4096 x 8193, exact f32)"] = time_ms(
+        torch, lambda: knn._topm_block(block, Xc, None, 0, m=m, exclude_self=False,
+                                       take_sqrt=False), 3)
+    dist_blk = torch.rand(4096, t, device=device)
+    device_ms["topm block sort alone (4096 x 8193, stable)"] = time_ms(
+        torch, lambda: torch.sort(dist_blk, dim=1, stable=True), 5)
+    del dist_blk
+    print("structure device times (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in device_ms.items()))
+    print("structure host times (s, host clock): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return {"launches": counts, "device_ms": device_ms, "host_s": times,
+            "peak_bytes": peak_bytes - base_bytes}
+
+
+def phase_vocoder64(D, rate):
+    """The phase vocoder in float64 numpy: linear magnitudes, summed phase advances."""
+    n = D.shape[-1]
+    t = np.arange(0.0, n, rate)
+    i0 = np.floor(t).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n - 1)
+    ph = np.angle(D)
+    phase = np.cumsum(np.concatenate([ph[:, i0[:1]], (ph[:, i1] - ph[:, i0])[:, :-1]], axis=1),
+                      axis=1)
+    i0e = np.clip(i0, 0, n - 2)
+    frac = t - i0e
+    mag = np.abs(D)
+    return (mag[:, i0e] * (1 - frac) + mag[:, i0e + 1] * frac) * np.exp(1j * phase)
+
+
+def effects_phase(torch, L, device, y, win) -> dict:
+    """Phase 4k: the effects on the main buffer, each against float64 numpy on track 0; the
+    synthesis and dB kernels at these shapes against their plain versions; times."""
+    import scipy.signal
+
+    from librosa_tpu_torch.core import spectrum
+    from librosa_tpu_torch.ops import db_scale, fused_stft, median, ola_norm
+
+    rows, n = MAIN_SHAPE
+    ys = y.clone()  # silence at both ends and in the middle, so that trim and split have work
+    q = n // 4
+    ys[:, :q] = 0
+    ys[:, 2 * q:2 * q + q // 4] = 0
+    ys[:, n - q // 2:] = 0
+    ys *= torch.linspace(0.2, 1.0, rows, device=device)[:, None]
+    iv = np.array([[0, q], [2 * q, 3 * q], [q, 2 * q]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
+    out = {"stretch 1.25": L.effects.time_stretch(y, rate=1.25),
+           "stretch 0.8": L.effects.time_stretch(y, rate=0.8),
+           "pitch +3": L.effects.pitch_shift(y, sr=SR, n_steps=3, res_type="fft"),
+           "remix": L.effects.remix(y, iv, align_zeros=False),
+           "remix zeros": L.effects.remix(y, iv, align_zeros=True)}
+    yt, idx = L.effects.trim(ys)
+    intervals = L.effects.split(ys)
+    out["pre"] = L.effects.preemphasis(y)
+    out["de"] = L.effects.deemphasis(out["pre"])
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "ola_norm": ola_norm.launches, "median_filter": median.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    print(f"effects: y {tuple(y.shape)} -> " + ", ".join(f"{k} {tuple(v.shape)}"
+                                                        for k, v in out.items())
+          + f", trim {tuple(yt.shape)} at {idx.tolist()}, split {len(intervals)} intervals; "
+          f"launches {counts}; peak memory {peak_bytes} bytes, {peak_bytes - base_bytes} above "
+          f"the {base_bytes} held before")
+    if counts != {"stft_mel": 0, "db_scale": 2, "ola_norm": 3, "median_filter": 0}:
+        raise AssertionError(f"effects launched {counts}, expected db_scale 2 (trim, split), "
+                             "ola_norm 3 (the stretches and the shift)")
+    lengths = {"stretch 1.25": round(n / 1.25), "stretch 0.8": round(n / 0.8), "pitch +3": n,
+               "remix": 3 * q, "pre": n, "de": n}
+    for key, value in out.items():  # the zero-aligned remix's length depends on the crossings
+        if (tuple(value.shape) != (rows, lengths.get(key, value.shape[-1]))
+                or not bool(torch.isfinite(value).all())):
+            raise AssertionError(f"effects {key}: shape {tuple(value.shape)} or not finite")
+
+    # track 0 against float64 numpy and scipy
+    y0 = y[0].cpu().numpy()
+    D64 = stft64(y0, win, n_fft=2048, hop=512)
+    snrs = {}
+    for rate in (1.25, 0.8):
+        want = istft64(phase_vocoder64(D64, rate), win, n_fft=2048, hop=512,
+                       length=round(n / rate))
+        snrs[f"stretch {rate}"] = snr_db(out[f"stretch {rate}"][0].cpu().numpy(), want)
+    pv = L.phase_vocoder(L.stft(y[:1]), rate=0.8)[0].abs().cpu().numpy()
+    snrs["phase_vocoder 0.8, |.|"] = snr_db(pv, np.abs(phase_vocoder64(D64, 0.8)))
+    del pv
+    rate = 2.0 ** (-3 / 12)
+    slow = istft64(phase_vocoder64(D64, rate), win, n_fft=2048, hop=512, length=round(n / rate))
+    # resample's length, from the rates as pitch_shift hands them over
+    num = int(np.ceil(len(slow) * (float(SR) / (float(SR) / rate))))
+    snrs["pitch +3"] = snr_db(out["pitch +3"][0].cpu().numpy(),
+                              scipy.signal.resample(slow, num)[:n])
+    y64 = y0.astype(np.float64)
+    pre64 = scipy.signal.lfilter([1.0, -0.97], [1.0], y64, zi=[2 * y64[0] - y64[1]])[0]
+    snrs["pre"] = snr_db(out["pre"][0].cpu().numpy(), pre64)
+    p64 = out["pre"][0].cpu().double().numpy()
+    start = ((2 - 0.97) * p64[0] - p64[1]) / (3 - 0.97)
+    snrs["de"] = snr_db(out["de"][0].cpu().numpy(),
+                        scipy.signal.lfilter([1.0], [1.0, -0.97], p64)
+                        - start * 0.97 ** np.arange(n))
+    floors = {"stretch 1.25": MIN_STRETCH_SNR_DB, "stretch 0.8": MIN_STRETCH_SNR_DB,
+              "phase_vocoder 0.8, |.|": MIN_PV_MAG_SNR_DB,
+              "pitch +3": MIN_STRETCH_SNR_DB, "pre": MIN_PRE_SNR_DB, "de": MIN_DE_SNR_DB}
+    print("effects track 0 vs float64 numpy/scipy: " + ", ".join(
+        f"{k} {v:.1f} dB (floor {floors[k]})" for k, v in snrs.items()))
+    for key, s in snrs.items():
+        if not s >= floors[key]:
+            raise AssertionError(f"effects {key}: {s:.1f} dB < {floors[key]}")
+    del D64, slow
+
+    # remix: the same samples as numpy slices, with bounds snapped to float64 zero crossings
+    host = y.cpu().numpy()
+    mono = host.astype(np.float64).mean(axis=0)
+    signs = np.signbit(np.where(np.abs(mono) <= 1e-10, 0.0, mono))
+    zeros = np.append(np.flatnonzero(np.concatenate([[True], signs[1:] != signs[:-1]])), n)
+    snapped = [[int(zeros[np.argmin(np.abs(zeros - b))]) for b in pair] for pair in iv]
+    for key, bounds in (("remix", iv.tolist()), ("remix zeros", snapped)):
+        want = np.concatenate([host[:, a:b] for a, b in bounds], axis=1)
+        if not np.array_equal(out[key].cpu().numpy(), want):
+            raise AssertionError(f"effects {key}: not the samples of {bounds}")
+
+    # trim and split: the loud frames by float64 RMS in dB against the peak, max over tracks
+    rms = np.stack([np.sqrt(np.mean(np.lib.stride_tricks.sliding_window_view(
+        np.pad(track, 1024), 2048)[::512] ** 2, axis=-1)) for track in ys.cpu().double().numpy()])
+    level = (20 * np.log10(np.maximum(rms, 1e-5)) - 20 * np.log10(max(rms.max(), 1e-5))).max(0)
+    loud = level > -60
+    near = np.flatnonzero(np.abs(level + 60) <= TRIM_TIE_DB)
+    edges = np.diff(np.concatenate([[0], loud.astype(np.int8), [0]]))
+    want_iv = np.minimum(np.stack([np.flatnonzero(edges > 0), np.flatnonzero(edges < 0)], 1)
+                         * 512, n)
+    want_idx = [int(want_iv[0, 0]), int(want_iv[-1, 1])]
+    print(f"trim {idx.tolist()} / split {intervals.tolist()} against float64: "
+          f"{idx.tolist() == want_idx and np.array_equal(intervals, want_iv)}; frames within "
+          f"{TRIM_TIE_DB} dB of the threshold: {near.tolist()}")
+    if not near.size and (idx.tolist() != want_idx or not np.array_equal(intervals, want_iv)):
+        raise AssertionError(f"trim / split: {idx.tolist()}, {intervals.tolist()} against "
+                             f"{want_idx}, {want_iv.tolist()}")
+    if not torch.equal(yt, ys[:, idx[0]:idx[1]]):
+        raise AssertionError("trim: not the samples between its bounds")
+
+    # the synthesis kernel at the slow stretch's shape, and the dB kernel at trim's
+    D = L.stft(y)
+    Ds = L.phase_vocoder(D, rate=0.8)
+    del D
+    length = round(n / 0.8)
+    _, _, hop, n_frames, start, out_len = spectrum._istft_geometry(
+        Ds.shape, n_fft=None, win_length=None, hop_length=None, center=True, length=length)
+    win_s = torch.from_numpy(win.astype(np.float32)).to(device)
+    wss = spectrum._wss_device("hann", n_frames=n_frames, win_length=2048, n_fft=2048,
+                               hop_length=hop, start=start, out_len=out_len, device=device,
+                               dtype=torch.float32)
+    fr = torch.fft.irfft(Ds[..., :n_frames].transpose(-2, -1), n=2048, dim=-1)
+    del Ds
+    poison(torch, (rows, out_len), device)
+    got = ola_norm.ola_norm(fr, win_s, wss, hop_length=hop, start=start)
+    want = ola_norm.ola_norm_reference(fr, win_s, wss, hop_length=hop, start=start)
+    if not torch.equal(got, want):
+        raise AssertionError("ola_norm at the stretch's shape: not bit-equal to its plain version")
+    ola_ms = time_ms(torch, lambda: ola_norm.ola_norm(fr, win_s, wss, hop_length=hop,
+                                                      start=start), 5)
+    del fr, got, want
+    mse = L.feature.rms(y=ys)[..., 0, :]
+    got = db_scale.db_scale(mse, ref=np.max, amin=1e-5, top_db=None, axes=(-2, -1),
+                            amplitude=True)
+    want = db_scale.db_scale_reference(mse, ref=np.max, amin=1e-5, top_db=None, axes=(-2, -1),
+                                       amplitude=True)
+    if not bool(((got - want).abs() <= DB_ATOL).all()):
+        raise AssertionError("db_scale at trim's shape: beyond its atol from the plain version")
+    print(f"ola_norm at the 0.8 stretch's shape {(rows, out_len)}: "
+          f"bit-equal to plain, {ola_ms:.4f} ms; db_scale at trim's {tuple(mse.shape)}: within "
+          f"{DB_ATOL} dB of plain")
+
+    D = L.stft(y)
+    times = {
+        "time_stretch 1.25": time_ms(torch, lambda: L.effects.time_stretch(y, rate=1.25), 2),
+        "time_stretch 0.8": time_ms(torch, lambda: L.effects.time_stretch(y, rate=0.8), 2),
+        "phase_vocoder 0.8 alone": time_ms(torch, lambda: L.phase_vocoder(D, rate=0.8), 2),
+        "pitch_shift +3 (fft)": time_ms(torch, lambda: L.effects.pitch_shift(
+            y, sr=SR, n_steps=3, res_type="fft"), 2),
+        "preemphasis": time_ms(torch, lambda: L.effects.preemphasis(y), 5),
+        "deemphasis (doubling scan)": time_ms(torch, lambda: L.effects.deemphasis(out["pre"]),
+                                              5),
+        "trim": time_ms(torch, lambda: L.effects.trim(ys), 5),
+        "split": time_ms(torch, lambda: L.effects.split(ys), 5),
+        "remix (device slices)": time_ms(torch, lambda: L.effects.remix(y, iv,
+                                                                        align_zeros=False), 5),
+    }
+    del D
+    t0 = time.perf_counter()
+    L.effects.remix(y, iv, align_zeros=True)
+    torch.cuda.synchronize()
+    host_s = {"remix with zero crossings (host copy and mean)": time.perf_counter() - t0}
+    print("effects times (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    print("effects host times (s, host clock): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host_s.items()))
+    return {"launches": counts, "device_ms": times, "host_s": host_s,
+            "peak_bytes": peak_bytes - base_bytes, "ola_ms": ola_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2409,6 +2942,8 @@ def main() -> int:
     config4 = cqt_hpss_phase(torch, L, device, y, win)
     from_files = files_phase(torch, L, device, smi)
     config5 = config5_phase(torch, L, device)
+    structure = structure_phase(torch, L, device, win)
+    effects = effects_phase(torch, L, device, y, win)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
@@ -2459,6 +2994,12 @@ def main() -> int:
         entry["launches"] += config5["launches"][kernel] + config5["bench_launches"][kernel]
         entry["launches_by_path"]["onset_beat_pyin"] = config5["launches"][kernel]
         entry["launches_by_path"]["config5_bench_1d"] = config5["bench_launches"][kernel]
+    for entry, kernel in ((stft_mel_entry, "stft_mel"), (db_entry, "db_scale"),
+                          (ola_entry, "ola_norm"), (median_entry, "median_filter"),
+                          (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi")):
+        for path, phase in (("alignment_structure", structure), ("effects", effects)):
+            entry["launches"] += phase["launches"].get(kernel, 0)
+            entry["launches_by_path"][path] = phase["launches"].get(kernel, 0)
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,
                                   config5["beat_dp"], config5["viterbi"], *diag_entries]}))
     print(smi)

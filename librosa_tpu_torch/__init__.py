@@ -5,7 +5,8 @@ The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
 ``amplitude_to_db`` and their inverses, ``perceptual_weighting``, ``resample``,
 ``piptrack``, ``pitch_tuning``, ``estimate_tuning``, ``yin``, ``pyin``,
 ``salience``, ``interp_harmonics``, ``f0_harmonics``, ``tone``, ``chirp``,
-``clicks``; ``onset``, ``beat`` and ``sequence``; ``feature.melspectrogram``,
+``clicks``, ``phase_vocoder``, the notation and svara names; ``onset``,
+``beat``, ``sequence``, ``segment``, ``effects`` and ``decompose``; ``feature.melspectrogram``,
 ``feature.mfcc``, ``feature.chroma_stft``, ``feature.spectral_centroid``,
 ``feature.spectral_rolloff``, ``feature.rms``, the tempograms and
 ``feature.tempo``; ``filters.mel``,
@@ -42,4 +43,4 @@ from .util.files import cite, ex, example  # noqa: F401
 from .version import show_versions, version as __version__  # noqa: F401
 
 from . import (beat, core, decompose, effects, feature, filters, io, onset, ops,  # noqa: F401
-               sequence, util)
+               segment, sequence, util)

@@ -23,7 +23,8 @@ __all__ = [
     "blocks_to_time", "times_like", "samples_like", "fft_frequencies", "mel_frequencies",
     "cqt_frequencies", "tempo_frequencies", "fourier_tempo_frequencies",
     "A_weighting", "B_weighting", "C_weighting", "D_weighting", "Z_weighting",
-    "frequency_weighting", "multi_frequency_weighting",
+    "frequency_weighting", "multi_frequency_weighting", "midi_to_svara_h", "hz_to_svara_h",
+    "note_to_svara_h", "midi_to_svara_c", "hz_to_svara_c", "note_to_svara_c", "hz_to_fjs",
 ]
 
 # Slaney's mel scale: linear (200/3 Hz per mel) below 1 kHz, logarithmic
@@ -358,3 +359,103 @@ def multi_frequency_weighting(frequencies: Any, *, kinds: Iterable[str] = "ZAC",
                               **kwargs: Any) -> np.ndarray:
     """One row of :func:`frequency_weighting` for each of ``kinds``, stacked on axis 0."""
     return np.stack([frequency_weighting(frequencies, kind=k, **kwargs) for k in kinds], axis=0)
+
+
+# ---------------------------------------------------------------------------
+# Indian svara names and FJS names (host Python)
+# ---------------------------------------------------------------------------
+
+_SVARA_H = ["Sa", "re", "Re", "ga", "Ga", "ma", "Ma", "Pa", "dha", "Dha", "ni", "Ni"]
+
+
+def _mark_svara_octave(name: str, steps: int, octave: bool, unicode: bool) -> str:
+    """``name`` with its octave: a dot above (``'``) in the octave above Sa's, a dot below (``,``) in the one below."""
+    if not octave:
+        return name
+    if 12 <= steps < 24:
+        mark, suffix = "\u0307", "'"
+    elif -12 <= steps < 0:
+        mark, suffix = "\u0323", ","
+    else:
+        return name
+    return name[0] + mark + name[1:] if unicode else name + suffix
+
+
+def midi_to_svara_h(midi: Any, *, Sa: float, abbr: bool = True, octave: bool = True,
+                    unicode: bool = True) -> Any:
+    """The Hindustani svara of a MIDI number above the tonic ``Sa`` (a MIDI number), or an array of them.
+
+    ``abbr`` keeps the initial (``'S'``, ``'r'``, ...); ``octave`` marks the
+    octaves above and below Sa's, ``unicode`` with combining dots, else with
+    ``'`` and ``,``. A number that is not finite gives ``''``.
+    """
+    if not np.isscalar(midi):
+        return np.array([midi_to_svara_h(m, Sa=Sa, abbr=abbr, octave=octave, unicode=unicode)
+                         for m in np.asarray(midi)])
+    if not np.isfinite(midi):
+        return ""
+    steps = int(np.round(midi - Sa))
+    name = _SVARA_H[steps % 12]
+    return _mark_svara_octave(name[0] if abbr else name, steps, octave, unicode)
+
+
+def hz_to_svara_h(frequencies: Any, *, Sa: float, abbr: bool = True, octave: bool = True,
+                  unicode: bool = True) -> Any:
+    """:func:`midi_to_svara_h` of frequencies in Hz, with the tonic ``Sa`` in Hz."""
+    return midi_to_svara_h(hz_to_midi(frequencies), Sa=float(hz_to_midi(Sa)), abbr=abbr,
+                           octave=octave, unicode=unicode)
+
+
+def note_to_svara_h(notes: Any, *, Sa: str, abbr: bool = True, octave: bool = True,
+                    unicode: bool = True) -> Any:
+    """:func:`midi_to_svara_h` of spelled notes, with the tonic ``Sa`` spelled (``'C4'``)."""
+    return midi_to_svara_h(note_to_midi(notes, round_midi=False), Sa=note_to_midi(Sa),
+                           abbr=abbr, octave=octave, unicode=unicode)
+
+
+def midi_to_svara_c(midi: Any, *, Sa: float, mela: Any, abbr: bool = True, octave: bool = True,
+                    unicode: bool = True) -> Any:
+    """The Carnatic svara of a MIDI number above ``Sa`` under the melakarta ``mela`` (name or 1-72).
+
+    The names are :func:`~librosa_tpu_torch.core.notation.mela_to_svara`'s;
+    ``abbr``, ``octave`` and ``unicode`` as in :func:`midi_to_svara_h`.
+    """
+    from .notation import mela_to_svara
+
+    if not np.isscalar(midi):
+        return np.array([midi_to_svara_c(m, Sa=Sa, mela=mela, abbr=abbr, octave=octave,
+                                         unicode=unicode) for m in np.asarray(midi)])
+    if not np.isfinite(midi):
+        return ""
+    steps = int(np.round(midi - Sa))
+    name = mela_to_svara(mela, abbr=abbr, unicode=unicode)[steps % 12]
+    return _mark_svara_octave(name, steps, octave, unicode)
+
+
+def hz_to_svara_c(frequencies: Any, *, Sa: float, mela: Any, abbr: bool = True,
+                  octave: bool = True, unicode: bool = True) -> Any:
+    """:func:`midi_to_svara_c` of frequencies in Hz, with the tonic ``Sa`` in Hz."""
+    return midi_to_svara_c(hz_to_midi(frequencies), Sa=float(hz_to_midi(Sa)), mela=mela,
+                           abbr=abbr, octave=octave, unicode=unicode)
+
+
+def note_to_svara_c(notes: Any, *, Sa: str, mela: Any, abbr: bool = True, octave: bool = True,
+                    unicode: bool = True) -> Any:
+    """:func:`midi_to_svara_c` of spelled notes, with the tonic ``Sa`` spelled."""
+    return midi_to_svara_c(note_to_midi(notes, round_midi=False), Sa=note_to_midi(Sa),
+                           mela=mela, abbr=abbr, octave=octave, unicode=unicode)
+
+
+def hz_to_fjs(frequencies: Any, *, fmin: Optional[float] = None, unison: Optional[str] = None,
+              unicode: bool = False) -> Any:
+    """FJS names of just-intoned frequencies in Hz, as intervals above ``fmin`` (default their minimum).
+
+    ``unison`` names ``fmin`` (default: its nearest note, without octave);
+    see :func:`~librosa_tpu_torch.core.notation.interval_to_fjs`.
+    """
+    from .notation import interval_to_fjs
+
+    base = np.min(frequencies) if fmin is None else fmin
+    ratios = frequencies / base if np.isscalar(frequencies) else np.asarray(frequencies) / base
+    root = hz_to_note(base, octave=False, unicode=False) if unison is None else unison
+    return interval_to_fjs(ratios, unison=root, unicode=unicode)

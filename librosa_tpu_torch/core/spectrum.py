@@ -21,12 +21,12 @@ from ..ops.fft import frames_rdft
 from ..ops.framing import frame_signal
 from ..ops.fused_stft import _fused, frames_power, kernel_refusal, stft_mel_reference
 from ..util.exceptions import ParameterError
-from ..util.utils import _torch_dtype, dtype_c2r, dtype_r2c, pad_last, tiny
+from ..util.utils import _host, _torch_dtype, dtype_c2r, dtype_r2c, pad_last, phasor, tiny
 from .convert import frequency_weighting
 
 __all__ = [
     "stft", "istft", "griffinlim", "magphase", "power_to_db", "db_to_power", "amplitude_to_db", "db_to_amplitude",
-    "perceptual_weighting", "_spectrogram",
+    "perceptual_weighting", "phase_vocoder", "_spectrogram",
 ]
 
 
@@ -392,6 +392,83 @@ def magphase(D: Any, *, power: float = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     zero = mag == 0
     phase = torch.where(zero, torch.ones_like(D), D / mag.masked_fill(zero, 1.0))
     return mag ** float(power), phase
+
+
+_PV_DEPRECATED = object()
+
+
+def phase_vocoder(
+    D: Any,
+    *,
+    rate: Optional[float] = None,
+    t_out: Any = None,
+    kind: str = "linear",
+    hop_length: Any = _PV_DEPRECATED,
+    n_fft: Any = _PV_DEPRECATED,
+) -> torch.Tensor:
+    """The STFT ``D`` ``(..., d, n)`` stretched in time: ``rate > 1`` faster, ``rate < 1`` slower.
+
+    Output frame ``k`` sits at the fractional input frame ``t_out[k]``
+    (``0, rate, 2 rate, ...`` for ``rate``; ``t_out`` in ``[0, n)`` gives
+    them directly). Its phase is the first frame's plus the sum of the
+    phase advances ``angle(D[i0 + 1]) - angle(D[i0])`` of the frames before
+    it; its magnitude is interpolated from ``|D|`` at ``t_out`` by ``kind``:
+    ``'linear'`` (extrapolating the last segment past the last frame),
+    ``'nearest'`` (a half rounds down) or any kind of scipy's ``interp1d``.
+    The index tables are built on the host; the phases, their running sum
+    (``torch.cumsum``), the gathers and the interpolation run on ``D``'s
+    device, except that another ``kind`` interpolates the magnitudes with
+    scipy on the host. ``hop_length`` and ``n_fft`` are deprecated and unused.
+    """
+    for name, val in (("hop_length", hop_length), ("n_fft", n_fft)):
+        if val is not _PV_DEPRECATED:
+            warnings.warn(f"The `{name}` parameter is deprecated and unused in the "
+                          "current implementation.", FutureWarning, stacklevel=2)
+    D = as_tensor(D)
+    n_frames = D.shape[-1]
+    if (rate is None) == (t_out is None):
+        raise ParameterError("Must specify exactly one of `rate` or `t_out`")
+    if rate is not None and rate <= 0:
+        raise ParameterError(f"rate={rate} must be a positive number")
+    if t_out is None:
+        t_out = np.arange(0.0, n_frames, rate)
+    t_out = np.asarray(_host(t_out), dtype=float)
+    if np.any(t_out < 0) or np.any(t_out >= n_frames):
+        raise ParameterError("t_out values must be in the range [0, D.shape[-1])")
+    if np.any(np.diff(t_out) < 0):
+        warnings.warn("t_out is not monotonic; phase estimation may be unstable", stacklevel=2)
+
+    real = D.real.dtype if D.is_complex() else D.dtype
+    rdt = torch.promote_types(real, torch.float32)
+    i0 = np.floor(t_out).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n_frames - 1)
+
+    def device_index(idx: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(D.device)
+
+    ph = torch.angle(D)
+    diff = ph.index_select(-1, device_index(i1)) - ph.index_select(-1, device_index(i0))
+    first = ph[..., int(i0[0]):int(i0[0]) + 1]
+    phase = torch.cumsum(torch.cat([first, diff[..., :-1]], dim=-1), dim=-1)
+    del ph, diff
+    if kind == "linear":
+        # the last segment's slope carries on past the last frame, as scipy's "extrapolate"
+        i0e = np.clip(i0, 0, max(n_frames - 2, 0))
+        frac = torch.from_numpy((t_out - i0e).astype(np.float64)).to(D.device, rdt)
+        mag = D.abs()
+        mag_out = (mag.index_select(-1, device_index(i0e)) * (1 - frac)
+                   + mag.index_select(-1, device_index(np.minimum(i0e + 1, n_frames - 1))) * frac)
+    elif kind == "nearest":
+        # scipy's "nearest" rounds a half down, toward i0
+        mag_out = D.abs().index_select(-1, device_index(np.where(t_out - i0 <= 0.5, i0, i1)))
+    else:
+        import scipy.interpolate
+
+        interp = scipy.interpolate.interp1d(np.arange(n_frames), np.abs(_host(D)), kind=kind,
+                                            axis=-1, fill_value="extrapolate",
+                                            assume_sorted=True, copy=False)
+        mag_out = torch.as_tensor(interp(t_out), dtype=rdt, device=D.device)
+    return phasor(phase, mag=mag_out)
 
 
 def _eye_device(n_fft: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:

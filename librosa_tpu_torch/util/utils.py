@@ -15,7 +15,8 @@ from .exceptions import ParameterError
 
 __all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax", "localmin",
            "dtype_r2c", "dtype_c2r", "abs2", "phasor", "softmask", "sparsify_rows", "frame",
-           "is_positive_int", "valid_int", "fix_frames", "index_to_slice", "sync", "peak_pick"]
+           "is_positive_int", "valid_int", "fix_frames", "index_to_slice", "sync", "peak_pick",
+           "shear", "fill_off_diagonal", "axis_sort"]
 
 # numpy's names for padding modes, as torch.nn.functional.pad knows them
 _TORCH_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
@@ -609,3 +610,73 @@ def softmask(X: Any, X_ref: Any, *, power: float = 1, split_zeros: bool = False)
     if bool((torch.minimum(X.min(), X_ref.min()) < 0).item()):
         raise ParameterError("softmask takes non-negative inputs")
     return _softmask_core(X, X_ref.to(X.device), power=float(power), split_zeros=split_zeros)
+
+
+def shear(X: Any, *, factor: int = 1, axis: int = -1) -> Any:
+    """``X`` ``(n0, n1)`` with each column rolled down by ``factor`` times its index.
+
+    With ``axis=0`` each row ``i`` rolls right by ``factor * i`` instead.
+    A tensor (or array, which goes to the default device) shears with one
+    modular gather on its device; a ``scipy.sparse`` matrix shears its
+    coordinates on the host and keeps its format.
+    """
+    if not np.issubdtype(type(factor), np.integer):
+        raise ParameterError(f"factor={factor} must be integer-valued")
+    import scipy.sparse
+
+    if scipy.sparse.issparse(X):
+        from ..segment import _shear_sparse
+
+        return _shear_sparse(X, factor, axis)
+    X = as_tensor(X)
+    if X.ndim != 2:
+        raise ParameterError("shear is defined only for 2D arrays")
+    n0, n1 = X.shape
+    rows = torch.arange(n0, device=X.device)[:, None]
+    cols = torch.arange(n1, device=X.device)[None, :]
+    if axis == 0:
+        return torch.gather(X, 1, (cols - factor * rows).remainder(n1))
+    return torch.gather(X, 0, (rows - factor * cols).remainder(n0))
+
+
+def fill_off_diagonal(x: Any, *, radius: float, value: float = 0) -> None:
+    """Set every cell of ``x`` ``(..., nx, ny)`` outside a band around the diagonal to ``value``, in place.
+
+    The band keeps ``|i - j| < radius``; a float ``radius`` below 1 is a
+    fraction of ``min(nx, ny)``. Of a rectangular matrix the columns (or
+    rows) from ``min(nx, ny) - radius`` on are filled as well. ``x`` is a
+    numpy array or a tensor, changed where it lies.
+    """
+    nx, ny = x.shape[-2:]
+    shortest = min(nx, ny)
+    if isinstance(radius, float) and radius < 1:
+        radius = int(radius * shortest)
+    radius = int(radius)
+    i = np.arange(nx)[:, None]
+    j = np.arange(ny)[None, :]
+    outside = (j - i >= radius) | (i - j >= radius)
+    if nx < ny:
+        outside[:, shortest - radius:] = True
+    elif ny < nx:
+        outside[shortest - radius:, :] = True
+    if isinstance(x, torch.Tensor):
+        outside = torch.from_numpy(outside).to(x.device)
+    x[..., outside] = value
+
+
+def axis_sort(S: Any, *, axis: int = -1, index: bool = False,
+              value: Optional[Callable] = None) -> Any:
+    """The matrix ``S`` with its columns (``axis=-1``) or rows (``axis=0``) in rising order of peak.
+
+    The peak of a column is ``value(S, axis=0)`` of it (``argmax`` by
+    default), of a row ``value(S, axis=1)``; equal peaks keep their order.
+    ``index=True`` also returns the permutation, as a tensor.
+    """
+    S = as_tensor(S)
+    if S.ndim != 2:
+        raise ParameterError(f"axis_sort needs a matrix; got ndim={S.ndim}")
+    key_axis = (axis + 1) % 2
+    peaks = S.argmax(dim=key_axis) if value is None else as_tensor(value(S, axis=key_axis))
+    order = torch.argsort(peaks, stable=True).to(S.device)
+    permuted = S.index_select(axis % 2, order)
+    return (permuted, order) if index else permuted

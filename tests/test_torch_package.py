@@ -26,6 +26,44 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_the_alignment_and_effects_modules_pull_in_no_jax():
+    code = (
+        "import sys\n"
+        "import librosa_tpu_torch.segment, librosa_tpu_torch.ops.knn\n"
+        "import librosa_tpu_torch.effects, librosa_tpu_torch.decompose\n"
+        "import librosa_tpu_torch.sequence, librosa_tpu_torch.core.notation\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'librosa_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_alignment_and_effects_try_the_card_by_default(monkeypatch):
+    """Without set_device('cpu') the search, the phase vocoder and the stretch go to cuda and fail here."""
+    from librosa_tpu_torch.ops import knn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = L.get_device()
+    L.set_device("cuda")
+    try:
+        X = np.random.RandomState(0).rand(30, 4)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            knn.topm(X, X, 3)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            L.segment.recurrence_matrix(X.T)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            L.phase_vocoder(np.ones((5, 8), dtype=np.complex64), rate=2.0)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            L.effects.time_stretch(np.zeros(4096, dtype=np.float32), rate=2.0)
+        # a CPU tensor keeps its device
+        assert L.phase_vocoder(torch.ones(5, 8, dtype=torch.complex64), rate=2.0).device.type == "cpu"
+        assert knn.topm(torch.from_numpy(X), X, 3)[1].shape == (30, 3)
+    finally:
+        L.set_device(prev)
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -41,7 +79,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert {"librosa_tpu_torch/io/_soxr.py", "librosa_tpu_torch/core/audio.py",
             "librosa_tpu_torch/core/pitch.py", "librosa_tpu_torch/ops/ola_norm.py",
             "librosa_tpu_torch/io/_native.py", "librosa_tpu_torch/util/files.py",
-            "librosa_tpu_torch/beat.py", "librosa_tpu_torch/ops/viterbi.py"} <= names
+            "librosa_tpu_torch/beat.py", "librosa_tpu_torch/ops/viterbi.py",
+            "librosa_tpu_torch/segment.py", "librosa_tpu_torch/ops/knn.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

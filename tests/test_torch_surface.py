@@ -27,25 +27,17 @@ STUBS = {
 PORT_OWN = {"librosa_tpu/__init__.pyi": {"get_device", "set_device"}}
 NOT_PORTED = {
     "librosa_tpu/__init__.pyi": {
-        "cache", "display", "fifths_to_note", "fmt", "hz_to_fjs", "hz_to_svara_c",
-        "hz_to_svara_h", "iirt", "interval_to_fjs", "list_mela", "list_thaat",
-        "mela_to_degrees", "mela_to_svara", "midi_to_svara_c", "midi_to_svara_h",
-        "note_to_svara_c", "note_to_svara_h", "parallel", "pcen", "phase_vocoder",
-        "reassigned_spectrogram", "segment", "thaat_to_degrees",
+        "cache", "display", "fmt", "iirt", "parallel", "pcen", "reassigned_spectrogram",
     },
-    "librosa_tpu/core/__init__.pyi": {
-        "hz_to_fjs", "hz_to_svara_c", "hz_to_svara_h", "midi_to_svara_c", "midi_to_svara_h",
-        "note_to_svara_c", "note_to_svara_h", "pcen", "phase_vocoder",
-    },
+    "librosa_tpu/core/__init__.pyi": {"pcen"},
     "librosa_tpu/feature/__init__.pyi": {
         "delta", "inverse", "mel_to_audio", "mel_to_stft", "mfcc_to_audio", "mfcc_to_mel",
         "poly_features", "spectral_bandwidth", "spectral_contrast", "spectral_flatness",
         "stack_memory", "tonnetz",
     },
     "librosa_tpu/util/__init__.pyi": {
-        "MAX_MEM_BLOCK", "axis_sort", "buf_to_float", "count_unique", "cyclic_gradient",
-        "fill_off_diagonal", "interp_broadcast", "is_unique", "nnls", "shear", "stack",
-        "valid_audio", "valid_intervals",
+        "MAX_MEM_BLOCK", "buf_to_float", "count_unique", "cyclic_gradient", "interp_broadcast",
+        "is_unique", "nnls", "stack", "valid_audio", "valid_intervals",
     },
 }
 

@@ -121,3 +121,21 @@ def test_pyin_float64_runs_in_float64():
     assert (vflag == vflag_32).float().mean() >= 0.95
     voiced = (vflag & vflag_32).numpy()
     assert _snr(f0_32.numpy()[voiced], f0.numpy()[voiced]) >= YIN_SNR_DB
+
+
+# The port's counterparts of tests/test_golden_pitch.py's tone and chirp checks: within a
+# hundredth of an octave of the true frequency, as there.
+@pytest.mark.parametrize("freq", [110, 220, 440, 880])
+def test_yin_tone_golden(freq):
+    y = L.tone(freq, duration=1.0)
+    f0 = L.yin(y, fmin=110, fmax=880, center=False).numpy()
+    assert np.allclose(np.log2(f0), np.log2(freq), rtol=0, atol=1e-2)
+
+
+def test_yin_chirp_instantaneous():
+    fl, hl = 2048, 512
+    f = 220 * (640 / 220) ** (np.arange(SR) / SR)
+    target = L.util.frame(torch.from_numpy(f), frame_length=fl, hop_length=hl).mean(dim=0)
+    y = L.chirp(fmin=220, fmax=640, sr=SR, duration=1.0, linear=False)
+    f0 = L.yin(y, fmin=110, fmax=880, sr=SR, frame_length=fl, hop_length=hl, center=False)
+    assert np.allclose(np.log2(f0.numpy()), np.log2(target.numpy()), rtol=0, atol=1e-2)
