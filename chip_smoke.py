@@ -120,6 +120,24 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    on track 0 (remix, trim and split exactly), the synthesis kernel at the
    slow stretch's shape bit for bit and the dB kernel at trim's against
    their plain versions; times and peak memory;
+4l. features and inversion on the main buffer: ``spectral_bandwidth``,
+   ``spectral_contrast``, ``spectral_flatness`` and ``poly_features`` from
+   ``y`` (the mel kernel with the identity basis, four launches), ``tonnetz``
+   from ``chroma_stft``, ``delta`` (orders 1 and 2), ``stack_memory`` and
+   ``mfcc_to_mel`` on its MFCCs; on the chirp batch's mel spectrogram
+   ``mel_to_stft`` (NNLS, 300 FISTA rounds over all 131088 frames) and
+   ``mel_to_audio`` (32 Griffin-Lim rounds, the synthesis kernel 33 times).
+   Track 0 against float64 numpy and scipy; the NNLS on track 0's first
+   128 frames against a float64 FISTA from the same start, by its fit and
+   objective; Griffin-Lim by its convergence to the NNLS magnitude; times
+   and peak memory;
+4m. ``pcen`` of the main buffer's power spectrogram (whole, max-filtered,
+   streamed in two halves through ``zi``/``zf``), ``reassigned_spectrogram``
+   of the chirp batch, ``iirt`` (``res_type='polyphase'``, 85 bands) of all
+   16 tracks and ``fmt`` of each track's first 2**18 samples; track 0
+   against float64 (scipy's ``lfilter``, three float64 STFTs, ``sosfiltfilt``
+   of the port's resampled track per band, ``interp1d`` and ``rfft``);
+   times and peak memory;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024, and a strided row
@@ -2757,6 +2775,486 @@ def effects_phase(torch, L, device, y, win) -> dict:
             "peak_bytes": peak_bytes - base_bytes, "ola_ms": ola_ms}
 
 
+MIN_DESCRIPTOR_SNR_DB = 100.0   # bandwidth (the golden asks 55), contrast, flatness, poly: float32
+                                # sums of |STFT| over 1025 bins (126-146 dB on the CPU, 2 tracks)
+MIN_TONNETZ_SNR_DB = 110.0      # the chroma projection, then a 6 x 12 product (124.8 on the CPU)
+MIN_DELTA_SNR_DB = 120.0        # nine-tap float32 sums against float64 savgol_filter (140.2)
+MIN_MFCC_TO_MEL_SNR_DB = 120.0  # one float32 product and 10**(x / 10) (144.8)
+MIN_NNLS_FIT_SNR_DB = 100.0     # mel projection of the float32 FISTA against float64's (124.5)
+NNLS_OBJECTIVE_RATIO = 1.5      # the float32 objective at most this times float64's (1.0)
+NNLS_FRAMES = 128               # track 0's frames solved again by the float64 FISTA (host)
+MAX_GL_CONVERGENCE = 0.25       # || |STFT(y)| - S || / ||S|| after 32 rounds, S from the NNLS
+                                # (0.152 on the CPU)
+MIN_PCEN_SNR_DB = 110.0         # the pcen golden's 90 dB; a float32 doubling scan (125.9-128.0)
+MIN_PCEN_STREAM_SNR_DB = 120.0  # two halves joined by zi / zf against the whole (139.8)
+MIN_REASSIGN_SNR_DB = 120.0     # a quotient of float32 spectra, bins above 1e-3 of the peak
+                                # (140.5-151.3)
+MIN_IIRT_SNR_DB = 120.0         # the iirt golden's floor (145.6 on the CPU)
+MIN_FMT_SNR_DB = 115.0          # a float32 spline solve, then an FFT (132.4 on 2**14 samples)
+FMT_SAMPLES = 1 << 18           # fmt's default grid grows as n log n: 66.9 M points a track at 2**22
+
+
+def db64(x, top_db=80.0):
+    db = 10 * np.log10(np.maximum(1e-10, x))
+    return np.maximum(db, db.max() - top_db)
+
+
+def descriptors64(S, *, sr, n_fft):
+    """Bandwidth, contrast, flatness and order-2 polynomial fits of a float64 |STFT| (F, T).
+
+    The contrast's octave bands are the package's own host table (numpy, the
+    same on the card and the CPU, where the tests hold it against the JAX
+    package); what is checked here is the arithmetic on the device."""
+    from librosa_tpu_torch.feature.spectral import _contrast_bands
+
+    freq = np.fft.rfftfreq(n_fft, 1.0 / sr)
+    Sn = S / np.maximum(S.sum(axis=0, keepdims=True), np.finfo(np.float32).tiny)
+    centroid = (freq[:, None] * Sn).sum(axis=0, keepdims=True)
+    bandwidth = np.sqrt((Sn * (freq[:, None] - centroid) ** 2).sum(axis=0, keepdims=True))
+    peaks, valleys = [], []
+    for members, n_take in _contrast_bands(freq, sr=sr, fmin=200.0, n_bands=6, quantile=0.02):
+        ordered = np.sort(S[members], axis=0)
+        valleys.append(ordered[:n_take].mean(axis=0))
+        peaks.append(ordered[-n_take:].mean(axis=0))
+    contrast = db64(np.stack(peaks)) - db64(np.stack(valleys))
+    P = np.maximum(1e-10, S**2)
+    flatness = np.exp(np.log(P).mean(axis=0, keepdims=True)) / P.mean(axis=0, keepdims=True)
+    poly = np.linalg.pinv(np.vander(freq, 3)) @ S
+    return {"spectral_bandwidth": bandwidth, "spectral_contrast": contrast,
+            "spectral_flatness": flatness, "poly_features (order 2)": poly}
+
+
+def fista64(A, B, x0, n_iter=300):
+    """The JAX package's NNLS FISTA in float64 numpy from the start ``x0``."""
+    AtA, AtB = A.T @ A, A.T @ B
+    v = np.ones(AtA.shape[0]) / np.sqrt(AtA.shape[0])
+    for _ in range(30):
+        w = AtA @ v
+        v = w / (np.linalg.norm(w) + 1e-30)
+    step = 1.0 / (v @ AtA @ v + 1e-12)
+    x, yk, t = x0, x0, 1.0
+    for _ in range(n_iter):
+        x_new = np.maximum(0.0, yk - step * (AtA @ yk - AtB))
+        t_new = 0.5 * (1 + np.sqrt(1 + 4 * t * t))
+        yk = x_new + ((t - 1) / t_new) * (x_new - x)
+        x, t = x_new, t_new
+    return x
+
+
+def pcen64(S, *, sr, hop, b=None, max_size=1, gain=0.98, bias=2.0, power=0.5,
+           time_constant=0.4, eps=1e-6):
+    """pcen of a float64 (F, T) power spectrogram by scipy's lfilter, zi = 1 - b as the port's."""
+    import scipy.ndimage
+    import scipy.signal
+
+    if b is None:
+        t_frames = time_constant * sr / float(hop)
+        b = (np.sqrt(1 + 4 * t_frames**2) - 1) / (2 * t_frames**2)
+    ref = S if max_size == 1 else scipy.ndimage.maximum_filter1d(S, max_size, axis=0,
+                                                                  mode="nearest")
+    M = scipy.signal.lfilter([b], [1, b - 1], ref, axis=-1,
+                             zi=np.full(S.shape[:-1] + (1,), 1.0 - b))[0]
+    smooth = np.exp(-gain * (np.log(eps) + np.log1p(M / eps)))
+    return (bias**power) * np.expm1(power * np.log1p(S * smooth / bias))
+
+
+def iirt64(y_groups, sos_groups, *, n_frames, hop, win, sr):
+    """iirt's frame energies in float64: scipy sosfiltfilt per band of each group's signal."""
+    import scipy.signal
+
+    out = []
+    for cur_sr, y in y_groups.items():
+        factor = sr / cur_sr
+        hop_g, win_g = hop / factor, round(win / factor)
+        n_rs = len(y)
+        start = np.arange(0, n_rs - win_g, hop_g)
+        pad_to = n_rs
+        if len(start) < n_frames:
+            pad_to = int(np.ceil(n_frames * hop_g)) + win_g
+            start = np.arange(0, pad_to - win_g, hop_g)
+        idx = np.round(start).astype(np.int64)[:n_frames]
+        csum = None
+        for sos in sos_groups[cur_sr]:
+            f = np.pad(scipy.signal.sosfiltfilt(sos, y), (0, pad_to - n_rs))
+            csum = np.concatenate([[0.0], np.cumsum(f * f)])  # float64 sums of squares
+            out.append(factor * (csum[idx + win_g] - csum[idx]))
+    return np.stack(out)
+
+
+class CallSpy:
+    """Records the arguments of the calls to ``module.name`` made inside a ``with`` block (the
+    last ``keep`` of them) and passes each call on unchanged: a wrapper's count still rises
+    once a launch, and a kernel can then be held against its plain version on exactly the
+    inputs a path gave it."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep, self.calls = module, name, keep, []
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            self.calls = (self.calls + [(args, kw)])[-self.keep:]
+            return inner(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def features_inversion_phase(torch, L, device, y, win) -> dict:
+    """Phase 4l: the spectral descriptors, tonnetz, delta, stack_memory and the inversions on the
+    main buffer and the chirp batch, each against float64 numpy on track 0; times, peak memory."""
+    import scipy.fft
+    import scipy.signal
+
+    from librosa_tpu_torch.feature.spectral import _contrast_bands
+    from librosa_tpu_torch.ops import db_scale, fused_stft, median, ola_norm
+
+    rows, n = MAIN_SHAPE
+    chirps = chirp_batch(torch, L, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
+    # the spies keep the inputs of contrast's two dB calls and of the last synthesis
+    with CallSpy(db_scale, "db_scale", keep=2) as db_spy, \
+            CallSpy(ola_norm, "ola_norm", keep=1) as ola_spy:
+        out = {"spectral_bandwidth": L.feature.spectral_bandwidth(y=y, sr=SR),
+               "spectral_contrast": L.feature.spectral_contrast(y=y, sr=SR),
+               "spectral_flatness": L.feature.spectral_flatness(y=y),
+               "poly_features (order 2)": L.feature.poly_features(y=y, sr=SR, order=2)}
+        contrast_db_calls = db_spy.calls
+        chroma = L.feature.chroma_stft(y=y, sr=SR, tuning=0.0)
+        out["tonnetz"] = L.feature.tonnetz(chroma=chroma)
+        mfcc = L.feature.mfcc(y=y, sr=SR)
+        out["delta 1"] = L.feature.delta(mfcc)
+        out["delta 2"] = L.feature.delta(mfcc, order=2)
+        out["stack_memory"] = L.feature.stack_memory(mfcc, n_steps=3, delay=-2)
+        out["mfcc_to_mel"] = L.feature.inverse.mfcc_to_mel(mfcc)
+        M = L.feature.melspectrogram(y=chirps, sr=SR)
+        out["mel_to_stft"] = L.feature.inverse.mel_to_stft(M, sr=SR)
+        out["mel_to_audio (32 rounds)"] = L.feature.inverse.mel_to_audio(M, sr=SR, n_iter=32,
+                                                                          length=n)
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "ola_norm": ola_norm.launches, "median_filter": median.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    print(f"features and inversion: y {tuple(y.shape)}, chirps {tuple(chirps.shape)} -> "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in out.items())
+          + f"; launches {counts}; peak memory {peak_bytes} bytes, {peak_bytes - base_bytes} "
+          f"above the {base_bytes} held before")
+    want = {"stft_mel": 7, "db_scale": 3, "ola_norm": 33, "median_filter": 0}
+    if counts != want:
+        raise AssertionError(f"features and inversion launched {counts}, expected {want} (K1: "
+                             "four descriptors, chroma, mfcc, the chirps' mel; db_scale: "
+                             "contrast's two and mfcc's; ola_norm: 32 rounds and the last istft)")
+    if len(contrast_db_calls) != 2:
+        raise AssertionError(f"spectral_contrast launched db_scale {len(contrast_db_calls)} "
+                             "times, expected its peak's and its valley's")
+
+    # the dB kernel on contrast's peaks and valleys, the synthesis kernel on the frames of
+    # mel_to_audio's last istft: each against its plain version on the same inputs
+    for (args, kw), part in zip(contrast_db_calls, ("peak", "valley")):
+        want = db_scale.db_scale_reference(*args, **kw)
+        poison(torch, tuple(want.shape), device)
+        got = db_scale.db_scale(*args, **kw)
+        err = float((got - want).abs().max())
+        print(f"db_scale on contrast's {part} {tuple(args[0].shape)} {kw}: max |kernel - plain| "
+              f"{err:.3g} dB (atol {DB_ATOL})")
+        if not err <= DB_ATOL:
+            raise AssertionError(f"db_scale on contrast's {part}: {err} dB from its plain version")
+    (args, kw), = ola_spy.calls
+    want = ola_norm.ola_norm_reference(*args, **kw)
+    poison(torch, tuple(want.shape), device)
+    got = ola_norm.ola_norm(*args, **kw)
+    print(f"ola_norm on mel_to_audio's last frames {tuple(args[0].shape)} -> {tuple(got.shape)}: "
+          f"bit-equal to plain: {bool(torch.equal(got, want))}")
+    if not torch.equal(got, want):
+        raise AssertionError("ola_norm at mel_to_audio's shape: not bit-equal to its plain version")
+    del contrast_db_calls, db_spy, ola_spy, args, kw, got, want
+
+    frames = 1 + n // 512
+    for key, value in out.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"features {key}: not finite")
+    shapes = {"spectral_contrast": (rows, 7, frames), "poly_features (order 2)": (rows, 3, frames),
+              "tonnetz": (rows, 6, frames), "stack_memory": (rows, 60, frames),
+              "mfcc_to_mel": (rows, 128, frames), "mel_to_stft": (rows, 1025, frames),
+              "mel_to_audio (32 rounds)": (rows, n)}
+    for key, value in out.items():
+        if tuple(value.shape) != shapes.get(key, (rows, 20 if "delta" in key else 1, frames)):
+            raise AssertionError(f"features {key}: shape {tuple(value.shape)}")
+
+    # track 0 against float64 numpy and scipy
+    S64 = spec64(y[0].cpu().numpy(), win, n_fft=2048, hop=512)
+    want64 = descriptors64(S64, sr=SR, n_fft=2048)
+    snrs = {k: snr_db(out[k][0].cpu().numpy(), v) for k, v in want64.items()}
+    # witnesses for the contrast: from cuFFT's |STFT| (no K1), from K1's plain version, and
+    # the port on the CPU from the same track; and where its largest error sits
+    witness = {"cuFFT |stft|": L.stft(y).abs()}
+    witness["K1's plain version"] = fused_stft.stft_mel_reference(
+        y, torch.from_numpy(win.astype(np.float32)).to(device),
+        torch.eye(1025, dtype=torch.float32, device=device), n_fft=2048, hop_length=512,
+        power=1.0)
+    for key, S_w in witness.items():
+        got = L.feature.spectral_contrast(S=S_w, sr=SR)
+        snrs[f"spectral_contrast from {key}"] = snr_db(got[0].cpu().numpy(),
+                                                       want64["spectral_contrast"])
+    del witness, S_w, got
+    snrs["spectral_contrast on the CPU"] = snr_db(
+        L.feature.spectral_contrast(y=y[:1].cpu(), sr=SR)[0].numpy(), want64["spectral_contrast"])
+    err = np.abs(out["spectral_contrast"][0].cpu().numpy() - want64["spectral_contrast"])
+    band, frame = np.unravel_index(err.argmax(), err.shape)
+    members, n_take = _contrast_bands(np.fft.rfftfreq(2048, 1.0 / SR), sr=SR, fmin=200.0,
+                                      n_bands=6, quantile=0.02)[band]
+    col = np.sort(S64[members, frame])
+    print(f"spectral_contrast's largest error {err.max():.4g} dB at band {band}, frame {frame}: "
+          f"its float64 valley {col[:n_take].mean():.4g} lies "
+          f"{20 * np.log10(np.median(col) / col[:n_take].mean()):.1f} dB below the band's median "
+          "bin, where a float32 |STFT| keeps few digits on any route")
+    chroma_basis = np.asarray(L.filters.chroma(sr=SR, n_fft=2048, tuning=0.0), np.float64)
+    raw = chroma_basis @ S64**2
+    c64 = raw / np.maximum(np.abs(raw).max(axis=0, keepdims=True), np.finfo(np.float32).tiny)
+    angle = np.pi * np.linspace(0, 12, num=12, endpoint=False)
+    phi = np.stack([r * f(k * angle) for k, r in ((7 / 6, 1.0), (3 / 2, 1.0), (2 / 3, 0.5))
+                    for f in (np.sin, np.cos)])
+    snrs["tonnetz"] = snr_db(out["tonnetz"][0].cpu().numpy(), phi @ (c64 / c64.sum(axis=0)))
+    m64 = mfcc[0].cpu().double().numpy()
+    for order in (1, 2):
+        snrs[f"delta {order}"] = snr_db(out[f"delta {order}"][0].cpu().numpy(),
+                                        scipy.signal.savgol_filter(m64, 9, order, deriv=order,
+                                                                   mode="interp", axis=-1))
+    m32 = mfcc[0].cpu().numpy()
+    stacked = np.concatenate([np.pad(m32, ((0, 0), (0, 2 * k)))[:, -m32.shape[-1]:]
+                              for k in range(3)])
+    if not np.array_equal(out["stack_memory"][0].cpu().numpy(), stacked):
+        raise AssertionError("stack_memory: not the shifted copies of the mfcc")
+    logmel = scipy.fft.idct(np.pad(m64, ((0, 108), (0, 0))), type=2, norm="ortho", axis=0)
+    snrs["mfcc_to_mel"] = snr_db(out["mfcc_to_mel"][0].cpu().numpy(), 10.0 ** (logmel / 10.0))
+
+    # mel_to_stft: track 0's first NNLS_FRAMES frames by the float64 FISTA from the same start
+    t0 = time.perf_counter()
+    A = np.asarray(L.filters.mel(sr=SR, n_fft=2048), np.float64)
+    B = M[0, :, :NNLS_FRAMES].cpu().double().numpy()
+    pinv = np.linalg.pinv(A, rcond=10 * max(A.shape) * np.finfo(np.float32).eps)
+    x64 = fista64(A, B, np.maximum(0.0, pinv @ B))
+    nnls_host_s = time.perf_counter() - t0
+    x32 = out["mel_to_stft"][0, :, :NNLS_FRAMES].cpu().double().numpy() ** 2
+    objective = {k: float(np.linalg.norm(A @ x - B) / np.linalg.norm(B))
+                 for k, x in (("float32 card", x32), ("float64 host", x64))}
+    snrs["mel_to_stft fit A x"] = snr_db(A @ x32, A @ x64)
+    nnls_x_snr = snr_db(np.sqrt(x32), np.sqrt(x64))
+    print(f"mel_to_stft on track 0's first {NNLS_FRAMES} frames (the float64 FISTA runs on the "
+          f"host: {nnls_host_s:.2f} s): objective ||A x - B|| / ||B|| {objective}, S itself "
+          f"{nnls_x_snr:.1f} dB against float64 (the null space keeps its start's rounding)")
+    if not objective["float32 card"] <= NNLS_OBJECTIVE_RATIO * objective["float64 host"] + 1e-7:
+        raise AssertionError(f"mel_to_stft objective {objective}")
+
+    # mel_to_audio: the spectral convergence of its 32 rounds against the NNLS magnitude
+    S_nnls = out["mel_to_stft"]
+    rebuilt = L.stft(out["mel_to_audio (32 rounds)"]).abs()
+    convergence = float(torch.linalg.vector_norm(rebuilt - S_nnls)
+                        / torch.linalg.vector_norm(S_nnls))
+    del rebuilt
+    floors = {"tonnetz": MIN_TONNETZ_SNR_DB,
+              "delta 1": MIN_DELTA_SNR_DB, "delta 2": MIN_DELTA_SNR_DB,
+              "mfcc_to_mel": MIN_MFCC_TO_MEL_SNR_DB, "mel_to_stft fit A x": MIN_NNLS_FIT_SNR_DB}
+    print("features track 0 vs float64 numpy/scipy: " + ", ".join(
+        f"{k} {v:.1f} dB (floor {floors.get(k, MIN_DESCRIPTOR_SNR_DB)})" for k, v in snrs.items())
+        + f"; mel_to_audio convergence after 32 rounds {convergence:.4f} "
+        f"(at most {MAX_GL_CONVERGENCE}); stack_memory equal")
+    for key, s in snrs.items():
+        if not s >= floors.get(key, MIN_DESCRIPTOR_SNR_DB):
+            raise AssertionError(f"features {key}: {s:.1f} dB < {floors.get(key)}")
+    if not convergence <= MAX_GL_CONVERGENCE:
+        raise AssertionError(f"mel_to_audio convergence {convergence:.4f} > {MAX_GL_CONVERGENCE}")
+    del out
+
+    times = {
+        "spectral_bandwidth": time_ms(torch, lambda: L.feature.spectral_bandwidth(y=y, sr=SR), 3),
+        "spectral_contrast": time_ms(torch, lambda: L.feature.spectral_contrast(y=y, sr=SR), 3),
+        "spectral_flatness": time_ms(torch, lambda: L.feature.spectral_flatness(y=y), 3),
+        "poly_features (order 2)": time_ms(torch, lambda: L.feature.poly_features(y=y, sr=SR,
+                                                                                  order=2), 3),
+        "tonnetz (from chroma)": time_ms(torch, lambda: L.feature.tonnetz(chroma=chroma), 5),
+        "delta (order 1)": time_ms(torch, lambda: L.feature.delta(mfcc), 5),
+        "stack_memory": time_ms(torch, lambda: L.feature.stack_memory(mfcc, n_steps=3,
+                                                                      delay=-2), 5),
+        "mfcc_to_mel": time_ms(torch, lambda: L.feature.inverse.mfcc_to_mel(mfcc), 5),
+        "mel_to_stft (NNLS, 300 rounds)": time_ms(
+            torch, lambda: L.feature.inverse.mel_to_stft(M, sr=SR), 1, groups=1),
+        "mel_to_audio (NNLS + 32 rounds)": time_ms(
+            torch, lambda: L.feature.inverse.mel_to_audio(M, sr=SR, n_iter=32, length=n), 1,
+            groups=1),
+    }
+    print("features and inversion times (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    print(f"features and inversion host times (s, host clock): float64 FISTA on "
+          f"{NNLS_FRAMES} frames {nnls_host_s:.4f}")
+    return {"launches": counts, "device_ms": times, "peak_bytes": peak_bytes - base_bytes,
+            "snr_db": snrs, "nnls_objective": objective, "gl_convergence": convergence}
+
+
+def pcen_spectrum_ext_phase(torch, L, device, y, win) -> dict:
+    """Phase 4m: pcen on the main buffer's power spectrogram (whole, max-filtered, streamed),
+    the reassigned spectrogram of the chirp batch, iirt of the main buffer and fmt of a cut,
+    each against float64 on track 0; times, peak memory."""
+    import scipy.interpolate
+    import scipy.signal
+
+    from librosa_tpu_torch.ops import db_scale, fused_stft, iir, median, ola_norm, spline
+
+    rows, n = MAIN_SHAPE
+    chirps = chirp_batch(torch, L, device)
+    P = L.stft(y).abs() ** 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
+    half = P.shape[-1] // 2
+    out = {"pcen": L.pcen(P, sr=SR), "pcen max_size 5": L.pcen(P, sr=SR, max_size=5, max_axis=-2)}
+    first, zf = L.pcen(P[..., :half], sr=SR, return_zf=True)
+    out["pcen streamed"] = torch.cat([first, L.pcen(P[..., half:], sr=SR, zi=zf)], dim=-1)
+    del first
+    freqs, times_r, mags = L.reassigned_spectrogram(chirps, sr=SR)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out["iirt"] = L.iirt(y, sr=SR, res_type="polyphase")
+    stop.record()
+    stop.synchronize()
+    iirt_ms = start.elapsed_time(stop)
+    out["fmt"] = L.fmt(y[:, :FMT_SAMPLES])
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "ola_norm": ola_norm.launches, "median_filter": median.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # fmt's grid is the package's own host table (numpy, as on the CPU, where the tests hold
+    # it against the JAX package); the check below is of the spline and the FFT on the card
+    targets = L.core.spectrum_ext._fmt_targets(FMT_SAMPLES, 0.5, None, 1.0)
+    n_fmt = len(targets)
+    frames = 1 + n // 512
+    print(f"pcen and spectrum_ext: P {tuple(P.shape)}, chirps {tuple(chirps.shape)} -> "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in out.items())
+          + f", reassigned 3 x {tuple(mags.shape)}; launches {counts}; peak memory {peak_bytes} "
+          f"bytes, {peak_bytes - base_bytes} above the {base_bytes} held before; fmt cut to the "
+          f"first {FMT_SAMPLES} samples of each track (its default grid grows as n log n: "
+          f"{n_fmt} points a track here, {L.core.spectrum_ext._fmt_default_points(n, 0.5, 1.0)} "
+          f"at {n})")
+    shapes = {"iirt": (rows, 85, frames), "fmt": (rows, n_fmt // 2 + 1)}
+    for key, value in out.items():
+        if (tuple(value.shape) != shapes.get(key, tuple(P.shape))
+                or not bool(torch.isfinite(value).all())):
+            raise AssertionError(f"{key}: shape {tuple(value.shape)} or not finite")
+    if counts != {"stft_mel": 0, "db_scale": 0, "ola_norm": 0, "median_filter": 0}:
+        raise AssertionError(f"pcen and spectrum_ext launched {counts}, expected none")
+
+    # track 0 against float64
+    P64 = spec64(y[0].cpu().numpy(), win, n_fft=2048, hop=512) ** 2
+    snrs = {"pcen": snr_db(out["pcen"][0].cpu().numpy(), pcen64(P64, sr=SR, hop=512)),
+            "pcen max_size 5": snr_db(out["pcen max_size 5"][0].cpu().numpy(),
+                                      pcen64(P64, sr=SR, hop=512, max_size=5)),
+            "pcen streamed vs whole (card)": snr_db(out["pcen streamed"][0].cpu().numpy(),
+                                                    out["pcen"][0].cpu().numpy())}
+    del P64
+    c0 = chirps[0].cpu().numpy()
+    D = stft64(c0, win, n_fft=2048, hop=512)
+    w = np.asarray(win, np.float64)
+    Ddh = stft64(c0, np.gradient(np.pad(w, 1, mode="wrap"))[1:-1], n_fft=2048, hop=512)
+    Dth = stft64(c0, w * np.arange(0.5 - 1024, 1024), n_fft=2048, hop=512)
+    m64 = np.abs(D)
+    keep = m64 > 1e-3 * m64.max()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        f64 = np.fft.rfftfreq(2048, 1 / SR)[:, None] - np.imag(Ddh / D) * (0.5 * SR / np.pi)
+        t64 = (np.arange(D.shape[-1]) * 512 / SR)[None] + np.real(Dth / D) / SR
+    f64, t64 = np.clip(f64, 0, SR / 2), np.clip(t64, 0, n / SR)
+    for key, got, want in (("reassigned freqs", freqs, f64), ("reassigned times", times_r, t64)):
+        g = got[0].cpu().numpy()
+        snrs[key] = snr_db(np.where(keep, np.nan_to_num(g), 0.0), np.where(keep, want, 0.0))
+    snrs["reassigned mags"] = snr_db(mags[0].cpu().numpy(), m64)
+    del D, Ddh, Dth, freqs, times_r, mags
+
+    # iirt: track 0 resampled to each rate by float64 scipy resample_poly, through float64
+    # scipy sosfiltfilt; the port's own resampling at those rates is held against it too
+    t0 = time.perf_counter()
+    bank, rates = L.filters.semitone_filterbank(flayout="sos")
+    padded = torch.nn.functional.pad(y[:1], (1024, 1024))
+    padded64 = padded[0].cpu().double().numpy()
+    y_groups = {r: padded64 if r == SR else scipy.signal.resample_poly(padded64, 1, round(SR / r))
+                for r in np.unique(rates)}
+    for r in np.unique(rates):
+        if r != SR:
+            snrs[f"resample {SR} -> {r:g} (iirt's rates)"] = snr_db(
+                L.resample(padded, orig_sr=SR, target_sr=r, res_type="polyphase")[0]
+                .cpu().numpy(), y_groups[r])
+    sos_groups = {r: [bank[i] for i in np.flatnonzero(rates == r)] for r in np.unique(rates)}
+    want = iirt64(y_groups, sos_groups, n_frames=frames, hop=512, win=2048, sr=SR)
+    order = np.argsort(np.concatenate([np.flatnonzero(rates == r) for r in np.unique(rates)]))
+    snrs["iirt"] = snr_db(out["iirt"][0].cpu().numpy(), want[order])
+    iirt_host_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    y0 = y[0, :FMT_SAMPLES].cpu().double().numpy()
+    fit = scipy.interpolate.interp1d(np.linspace(0, 1, FMT_SAMPLES, endpoint=False), y0,
+                                     kind="cubic")
+    fmt_want = np.fft.rfft(fit(targets) * targets**0.5 * np.sqrt(FMT_SAMPLES) / n_fmt)
+    snrs["fmt"] = float(10 * np.log10(np.sum(np.abs(fmt_want) ** 2) / np.sum(
+        np.abs(out["fmt"][0].cpu().numpy() - fmt_want) ** 2)))
+    fmt_host_s = time.perf_counter() - t0
+    floors = {"pcen": MIN_PCEN_SNR_DB, "pcen max_size 5": MIN_PCEN_SNR_DB,
+              "pcen streamed vs whole (card)": MIN_PCEN_STREAM_SNR_DB,
+              "reassigned freqs": MIN_REASSIGN_SNR_DB, "reassigned times": MIN_REASSIGN_SNR_DB,
+              "reassigned mags": MIN_REASSIGN_SNR_DB, "iirt": MIN_IIRT_SNR_DB,
+              "fmt": MIN_FMT_SNR_DB}
+    floors.update({k: MIN_RESAMPLE_SNR_DB for k in snrs if k.startswith("resample")})
+    print("pcen and spectrum_ext track 0 vs float64: " + ", ".join(
+        f"{k} {v:.1f} dB (floor {floors[k]})" for k, v in snrs.items()))
+    for key, s in snrs.items():
+        if not s >= floors[key]:
+            raise AssertionError(f"{key}: {s:.1f} dB < {floors[key]}")
+    del out
+
+    yc = y[:, :FMT_SAMPLES]
+    resampled = spline.uniform_cubic_resample(yc, targets, x0=0.0, dx=1.0 / FMT_SAMPLES)
+    # one block of iirt's 22050 Hz group (the tracks of one call of the bank), alone
+    bank, rates = L.filters.semitone_filterbank(flayout="sos")
+    group = np.stack([bank[i] for i in np.flatnonzero(rates == SR)])
+    padlen = iir._bank_padlen(group)
+    block = y[:L.core.spectrum_ext.iirt_block_tracks(len(group), n + 2048 + 2 * padlen, 4)]
+    block = torch.nn.functional.pad(block, (1024, 1024))
+    params = iir._bank_tensors(group, block.shape[-1] + 2 * padlen, block)
+    zi_unit = torch.as_tensor(np.stack([iir.sosfilt_zi(s) for s in group]),
+                              dtype=torch.float32, device=device)
+    c = block[:, None, None, :].expand(block.shape[0], len(group), 2, block.shape[-1]).contiguous()
+    times = {
+        "fmt: the spline resample alone": time_ms(
+            torch, lambda: spline.uniform_cubic_resample(yc, targets, x0=0.0,
+                                                         dx=1.0 / FMT_SAMPLES), 3),
+        f"fmt: rfft of {n_fmt} points a track alone": time_ms(
+            torch, lambda: torch.fft.rfft(resampled, dim=-1), 3),
+        f"iirt: bank filtfilt of one block ({block.shape[0]} tracks x {len(group)} bands "
+        f"at {SR} Hz)": time_ms(torch, lambda: iir._bank_filtfilt_core(
+            block, *params[:4], zi_unit, *params[4:], padlen=padlen), 1, groups=1),
+        "iirt: one doubling scan of that block's forcing": time_ms(
+            torch, lambda: iir._prefix_affine_scan(params[3][0], c), 1, groups=1),
+        "pcen": time_ms(torch, lambda: L.pcen(P, sr=SR), 3),
+        "pcen max_size 5": time_ms(torch, lambda: L.pcen(P, sr=SR, max_size=5, max_axis=-2), 3),
+        "reassigned_spectrogram": time_ms(torch, lambda: L.reassigned_spectrogram(chirps, sr=SR),
+                                          2),
+        f"fmt on {FMT_SAMPLES} samples a track": time_ms(torch, lambda: L.fmt(yc), 3),
+        "iirt (one call)": iirt_ms,
+    }
+    del resampled, c, block
+    print("pcen and spectrum_ext times (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    print(f"pcen and spectrum_ext host times (s, host clock): float64 iirt reference "
+          f"{iirt_host_s:.4f}, float64 fmt reference {fmt_host_s:.4f}")
+    return {"launches": counts, "device_ms": times, "peak_bytes": peak_bytes - base_bytes,
+            "snr_db": snrs}
+
+
 def main() -> int:
     import torch
 
@@ -2944,6 +3442,8 @@ def main() -> int:
     config5 = config5_phase(torch, L, device)
     structure = structure_phase(torch, L, device, win)
     effects = effects_phase(torch, L, device, y, win)
+    features = features_inversion_phase(torch, L, device, y, win)
+    pcen_ext = pcen_spectrum_ext_phase(torch, L, device, y, win)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
@@ -2997,7 +3497,8 @@ def main() -> int:
     for entry, kernel in ((stft_mel_entry, "stft_mel"), (db_entry, "db_scale"),
                           (ola_entry, "ola_norm"), (median_entry, "median_filter"),
                           (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi")):
-        for path, phase in (("alignment_structure", structure), ("effects", effects)):
+        for path, phase in (("alignment_structure", structure), ("effects", effects),
+                            ("features_inversion", features), ("pcen_spectrum_ext", pcen_ext)):
             entry["launches"] += phase["launches"].get(kernel, 0)
             entry["launches_by_path"][path] = phase["launches"].get(kernel, 0)
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,

@@ -2,16 +2,18 @@
 
 The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
 (flat ``load``, ``stream``, ``to_mono``, ``get_duration``, ``stft``, ``istft``, ``griffinlim``, ``magphase``, ``power_to_db``,
-``amplitude_to_db`` and their inverses, ``perceptual_weighting``, ``resample``,
+``amplitude_to_db`` and their inverses, ``perceptual_weighting``, ``pcen``,
+``reassigned_spectrogram``, ``iirt``, ``fmt``, ``resample``,
 ``piptrack``, ``pitch_tuning``, ``estimate_tuning``, ``yin``, ``pyin``,
 ``salience``, ``interp_harmonics``, ``f0_harmonics``, ``tone``, ``chirp``,
 ``clicks``, ``phase_vocoder``, the notation and svara names; ``onset``,
 ``beat``, ``sequence``, ``segment``, ``effects`` and ``decompose``; ``feature.melspectrogram``,
 ``feature.mfcc``, ``feature.chroma_stft``, ``feature.spectral_centroid``,
-``feature.spectral_rolloff``, ``feature.rms``, the tempograms and
-``feature.tempo``; ``filters.mel``,
+``feature.spectral_rolloff``, the other spectral descriptors, ``feature.tonnetz``,
+``feature.rms``, the tempograms and ``feature.tempo``, ``feature.delta``,
+``feature.stack_memory`` and the inversions in ``feature.inverse``; ``filters.mel``,
 ``filters.chroma``, ``filters.get_window``, ``filters.window_sumsquare``;
-``util.normalize`` and friends)
+``util.normalize``, ``util.nnls`` and friends)
 and the same array layout: time on the last axis, bins on axis -2, any
 leading dims.
 
@@ -38,6 +40,7 @@ from .core.intervals import *  # noqa: F401,F403
 from .core.notation import *  # noqa: F401,F403
 from .core.pitch import *  # noqa: F401,F403
 from .core.spectrum import *  # noqa: F401,F403
+from .core.spectrum_ext import fmt, iirt, reassigned_spectrogram  # noqa: F401
 from .util.exceptions import LibrosaError, ParameterError  # noqa: F401
 from .util.files import cite, ex, example  # noqa: F401
 from .version import show_versions, version as __version__  # noqa: F401

@@ -1,5 +1,5 @@
 """Spectral engine of the port: STFT and its inverse, Griffin-Lim, the fused STFT-basis route,
-dB scaling.
+dB scaling, per-channel energy normalisation.
 
 Layout as in the JAX package: frequency on axis -2, time on axis -1, any
 leading dims.
@@ -26,7 +26,7 @@ from .convert import frequency_weighting
 
 __all__ = [
     "stft", "istft", "griffinlim", "magphase", "power_to_db", "db_to_power", "amplitude_to_db", "db_to_amplitude",
-    "perceptual_weighting", "phase_vocoder", "_spectrogram",
+    "perceptual_weighting", "phase_vocoder", "pcen", "_spectrogram",
 ]
 
 
@@ -628,3 +628,98 @@ def perceptual_weighting(S: Any, frequencies: Any, *, kind: str = "A",
     db = power_to_db(S, **kwargs)
     offset = frequency_weighting(frequencies, kind=kind).reshape((-1, 1))
     return torch.as_tensor(offset, dtype=db.dtype, device=db.device) + db
+
+
+# ---------------------------------------------------------------------------
+# per-channel energy normalisation
+# ---------------------------------------------------------------------------
+
+
+def pcen(
+    S: Any,
+    *,
+    sr: float = 22050,
+    hop_length: int = 512,
+    gain: float = 0.98,
+    bias: float = 2,
+    power: float = 0.5,
+    time_constant: float = 0.400,
+    eps: float = 1e-6,
+    b: Optional[float] = None,
+    max_size: int = 1,
+    ref: Any = None,
+    axis: int = -1,
+    max_axis: Optional[int] = None,
+    zi: Any = None,
+    return_zf: bool = False,
+):
+    """Per-channel energy normalisation: ``(S / (eps + M)**gain + bias)**power - bias**power``.
+
+    ``M`` is ``S`` (or ``ref``; with ``max_size > 1`` the centred,
+    edge-padded maximum of ``max_size`` bins along ``max_axis``) smoothed
+    along ``axis`` by the one-pole filter ``M[n] = b S[n] + (1 - b) M[n-1]``,
+    a doubling scan on the device (:func:`ops.iir.first_order_filter`).
+    ``b`` defaults to the coefficient matched to ``time_constant`` seconds at
+    ``sr / hop_length`` frames a second. ``zi`` is the filter's starting state
+    (default: the steady state ``1 - b``); ``return_zf`` also returns the final
+    state, shaped like ``S`` with one sample along ``axis``, for the next
+    block. ``power=0`` compresses by ``log1p``. Complex ``S`` warns and is
+    reduced to its magnitude.
+    """
+    from ..ops.iir import first_order_filter
+    from ..util.utils import is_positive_int
+
+    for name, value, lo, strict in (("power", power, 0, False), ("gain", gain, 0, False),
+                                    ("bias", bias, 0, False), ("eps", eps, 0, True),
+                                    ("time_constant", time_constant, 0, True)):
+        if value < lo or (strict and value == lo):
+            raise ParameterError(f"PCEN coefficient {name}={value} must be "
+                                 f"{'>' if strict else '>='} {lo}")
+    if not is_positive_int(max_size):
+        raise ParameterError(f"the max-filter width must be a positive integer; "
+                             f"got max_size={max_size}")
+    if b is None:
+        t_frames = time_constant * sr / float(hop_length)
+        b = (np.sqrt(1 + 4 * t_frames**2) - 1) / (2 * t_frames**2)
+    if not 0 <= b <= 1:
+        raise ParameterError(f"the smoothing coefficient b={b} is outside [0, 1]")
+    b = float(b)
+    S = as_tensor(S)
+    if S.is_complex():
+        warnings.warn("pcen discards phase: the complex input is reduced to its magnitude. "
+                      "Pass pcen(np.abs(D)) to silence this warning.", stacklevel=2)
+        S = S.abs()
+    if ref is None and max_size > 1:
+        if S.ndim == 1:
+            raise ParameterError("a 1-D envelope has no frequency axis to max-filter over")
+        if max_axis is None:
+            if S.ndim != 2:
+                raise ParameterError(f"max-filtering a {S.ndim}-D stack is ambiguous: "
+                                     "specify max_axis")
+            max_axis = int(np.mod(1 - axis, 2))
+
+    if ref is not None:
+        ref_arr = as_tensor(ref).to(S.device)
+    elif max_size == 1:
+        ref_arr = S
+    else:
+        lpad = max_size // 2
+        moved = pad_last(S.movedim(max_axis, -1), lpad, max_size - 1 - lpad, mode="edge")
+        ref_arr = moved.unfold(-1, max_size, 1).amax(dim=-1).movedim(-1, max_axis)
+    if zi is None:
+        zi_val = torch.full((), 1.0 - b, dtype=ref_arr.dtype, device=ref_arr.device)
+    else:
+        zi_val = as_tensor(zi).to(device=ref_arr.device, dtype=ref_arr.dtype)
+        zi_val = zi_val.movedim(axis, -1)[..., 0]
+    smooth_in, _ = first_order_filter(ref_arr, b0=b, b1=0.0, a1=b - 1.0, zi=zi_val, axis=axis)
+    smooth = torch.exp(-gain * (np.log(eps) + torch.log1p(smooth_in / eps)))
+    if power == 0:
+        out = torch.log1p(S * smooth)
+    elif bias == 0:
+        out = torch.exp(power * (torch.log(S) + torch.log(smooth)))
+    else:
+        out = (bias**power) * torch.expm1(power * torch.log1p(S * smooth / bias))
+    if return_zf:
+        last = smooth_in.movedim(axis, -1)[..., -1:]
+        return out, ((1.0 - b) * last).movedim(-1, axis)
+    return out

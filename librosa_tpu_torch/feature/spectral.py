@@ -1,4 +1,5 @@
-"""Spectral features: mel spectrogram, MFCC, chroma, centroid, roll-off, RMS and zero-crossing rate."""
+"""Spectral features: mel spectrogram, MFCC, chroma, tonnetz, centroid, bandwidth, contrast,
+roll-off, flatness, polynomial fits, RMS and zero-crossing rate."""
 
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ from ..ops.framing import frame_signal
 from ..ops.fused_stft import basis_bands
 from ..ops.transforms import dct_matrix
 from ..util.exceptions import ParameterError
-from ..util.utils import _torch_dtype, abs2, expand_to, normalize, pad_last
+from ..util.utils import _host, _torch_dtype, abs2, expand_to, normalize, pad_last
 
 __all__ = ["melspectrogram", "mfcc", "chroma_stft", "chroma_cqt", "chroma_cens", "chroma_vqt",
-           "spectral_centroid", "spectral_rolloff", "rms", "zero_crossing_rate"]
+           "spectral_centroid", "spectral_rolloff", "rms", "zero_crossing_rate",
+           "spectral_bandwidth", "spectral_contrast", "spectral_flatness", "poly_features",
+           "tonnetz"]
 
 
 def _basis_device(make: Callable[..., np.ndarray], sr: float, n_fft: int,
@@ -425,6 +428,126 @@ def _centroid_core(S: torch.Tensor, freq: torch.Tensor) -> torch.Tensor:
     return (freq * normalize(S, norm=1, axis=-2)).sum(dim=-2, keepdim=True)
 
 
+def spectral_bandwidth(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    S: Any = None,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+    freq: Any = None,
+    centroid: Any = None,
+    norm: bool = True,
+    p: float = 2,
+) -> torch.Tensor:
+    """Spectral bandwidth ``(..., 1, T)``: ``(sum_k S[k] |freq[k] - centroid|**p)**(1/p)`` per frame.
+
+    ``S`` is a magnitude spectrogram (without it ``|STFT(y)|``, by the
+    stft_mel kernel with the identity basis where it applies), scaled to
+    unit sum per frame where ``norm``. ``centroid`` defaults to
+    :func:`spectral_centroid` of the same ``S``; ``freq`` is 1-d or varies
+    with time.
+    """
+    given = S is not None
+    S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length,
+                            win_length=win_length, window=window, center=center,
+                            pad_mode=pad_mode)
+    _check_nonneg_real(S, "Spectral bandwidth", computed=not given)
+    one_d = freq is None or np.ndim(freq) == 1
+    freq = _bin_frequencies(freq, sr, n_fft, S)
+    if centroid is None:
+        centroid = _centroid_core(S, freq)
+    centroid = as_tensor(centroid).to(device=S.device, dtype=freq.dtype)
+    deviation = (freq - centroid[..., 0:1, :]).abs() if one_d else (freq - centroid).abs()
+    if norm:
+        S = normalize(S, norm=1, axis=-2)
+    return (S * deviation ** float(p)).sum(dim=-2, keepdim=True) ** (1.0 / float(p))
+
+
+def _contrast_bands(freq: np.ndarray, *, sr: float, fmin: float, n_bands: int,
+                    quantile: float) -> list:
+    """The octave bands of :func:`spectral_contrast` as ``(members, n_take)`` pairs, on the host.
+
+    Band ``k`` holds the bins in ``[edges[k], edges[k + 1]]`` and annexes the
+    one below it; the top band runs to Nyquist, every other drops its last
+    member. ``n_take`` is counted before that drop.
+    """
+    edges = np.concatenate(([0.0], fmin * np.exp2(np.arange(n_bands + 1))))
+    if (edges[:-1] >= 0.5 * sr).any():
+        raise ParameterError(f"octave bands starting at fmin={fmin} with n_bands={n_bands} "
+                             f"pass Nyquist ({sr / 2} Hz); lower one of them")
+    bands = []
+    for k in range(n_bands + 1):
+        inside = (freq >= edges[k]) & (freq <= edges[k + 1])
+        hits = np.flatnonzero(inside)
+        if k > 0:
+            inside[hits[0] - 1] = True
+        if k == n_bands:
+            inside[hits[-1] + 1:] = True
+        members = np.flatnonzero(inside)
+        if k < n_bands:
+            members = members[:-1]
+        bands.append((members, max(int(np.rint(quantile * int(inside.sum()))), 1)))
+    return bands
+
+
+def spectral_contrast(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    S: Any = None,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+    freq: Any = None,
+    fmin: float = 200.0,
+    n_bands: int = 6,
+    quantile: float = 0.02,
+    linear: bool = False,
+) -> torch.Tensor:
+    """Octave-band spectral contrast ``(..., n_bands + 1, T)``.
+
+    Each frame of the magnitude spectrogram is cut into octave bands from
+    ``fmin`` (and one band below it); a band's peak and valley are the means
+    of its top and bottom ``quantile`` of bins, by a sort on the device. The
+    contrast is ``power_to_db(peak) - power_to_db(valley)`` (each clipped 80
+    dB below its own peak per channel), or ``peak - valley`` where ``linear``.
+    """
+    S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length,
+                            win_length=win_length, window=window, center=center,
+                            pad_mode=pad_mode)
+    freq = fft_frequencies(sr=sr, n_fft=n_fft) if freq is None else _host(freq)
+    freq = np.atleast_1d(np.asarray(freq))
+    if freq.ndim != 1 or len(freq) != S.shape[-2]:
+        raise ParameterError(f"freq must be one center frequency per spectrogram row "
+                             f"(({S.shape[-2]},)); got shape {freq.shape}")
+    if not isinstance(n_bands, (int, np.integer)) or n_bands < 1:
+        raise ParameterError(f"n_bands={n_bands!r} is not a positive integer")
+    if not 0.0 < quantile < 1.0:
+        raise ParameterError(f"the contrast quantile must be strictly inside (0, 1); got {quantile}")
+    if fmin <= 0:
+        raise ParameterError(f"fmin={fmin} must be above 0 Hz")
+    valleys, peaks = [], []
+    for members, n_take in _contrast_bands(freq, sr=sr, fmin=fmin, n_bands=int(n_bands),
+                                           quantile=quantile):
+        index = torch.as_tensor(members, device=S.device)
+        ordered = torch.sort(S.index_select(-2, index), dim=-2).values
+        valleys.append(ordered[..., :n_take, :].mean(dim=-2))
+        peaks.append(ordered[..., -n_take:, :].mean(dim=-2))
+    valley = torch.stack(valleys, dim=-2)
+    peak = torch.stack(peaks, dim=-2)
+    if linear:
+        return peak - valley
+    return power_to_db(peak) - power_to_db(valley)
+
+
 def spectral_rolloff(
     *,
     y: Any = None,
@@ -461,6 +584,107 @@ def _rolloff_core(S: torch.Tensor, freq: torch.Tensor, *, roll_percent: float) -
     # bins below the threshold drop out of the minimum; the last bin never does
     inf = torch.full((), float("inf"), dtype=freq.dtype, device=freq.device)
     return torch.where(total < threshold, inf, freq).amin(dim=-2, keepdim=True)
+
+
+def spectral_flatness(
+    *,
+    y: Any = None,
+    S: Any = None,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+    amin: float = 1e-10,
+    power: float = 2.0,
+) -> torch.Tensor:
+    """Spectral flatness ``(..., 1, T)``: the geometric over the arithmetic mean of ``S**power``.
+
+    ``S`` is a magnitude spectrogram (without it ``|STFT(y)|``); values
+    below ``amin`` count as ``amin``.
+    """
+    if amin <= 0:
+        raise ParameterError("amin must be strictly positive")
+    given = S is not None
+    S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length, power=1.0,
+                            win_length=win_length, window=window, center=center,
+                            pad_mode=pad_mode)
+    _check_nonneg_real(S, "Spectral flatness", computed=not given)
+    S_thresh = torch.clamp(S ** float(power), min=float(amin))
+    gmean = torch.exp(torch.log(S_thresh).mean(dim=-2, keepdim=True))
+    return gmean / S_thresh.mean(dim=-2, keepdim=True)
+
+
+def poly_features(
+    *,
+    y: Any = None,
+    sr: float = 22050,
+    S: Any = None,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: Optional[int] = None,
+    window: Any = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+    order: int = 1,
+    freq: Any = None,
+) -> torch.Tensor:
+    """Coefficients ``(..., order + 1, T)`` of a polynomial fit to each frame, highest degree first.
+
+    With 1-d ``freq`` (default: the bins' frequencies) the fit is one
+    product with the Vandermonde matrix's pseudo-inverse, made on the host
+    in float64. With ``freq`` that varies by frame, each frame is a
+    least-squares fit of its own: a batched SVD on the device, singular
+    values below ``eps * max(f, order + 1)`` of the largest dropped, as
+    ``jnp.linalg.lstsq`` drops them.
+    """
+    S, n_fft = _spectrogram(y=y, S=S, n_fft=n_fft, hop_length=hop_length,
+                            win_length=win_length, window=window, center=center,
+                            pad_mode=pad_mode)
+    if freq is None:
+        freq = fft_frequencies(sr=sr, n_fft=n_fft)
+    if isinstance(freq, torch.Tensor) and freq.ndim > 1:
+        freq = freq.to(device=S.device, dtype=S.dtype)
+    else:
+        freq = _host(freq)
+    if freq.ndim == 1:
+        pinv = np.linalg.pinv(np.vander(freq, order + 1))
+        with exact_f32():
+            return torch.matmul(torch.as_tensor(pinv, dtype=S.dtype, device=S.device), S)
+    freq = torch.as_tensor(freq, dtype=S.dtype, device=S.device)
+    flatS, flatF = S.transpose(-2, -1), freq.transpose(-2, -1)  # (..., T, f)
+    bshape = torch.broadcast_shapes(flatS.shape[:-1], flatF.shape[:-1])
+    flatS = flatS.broadcast_to(bshape + flatS.shape[-1:]).reshape(-1, flatS.shape[-1], 1)
+    flatF = flatF.broadcast_to(bshape + flatF.shape[-1:]).reshape(-1, flatF.shape[-1])
+    powers = torch.arange(order, -1, -1, dtype=S.dtype, device=S.device)
+    V = flatF[..., None] ** powers  # decreasing powers, as np.vander
+    U, sv, Vh = torch.linalg.svd(V, full_matrices=False)
+    rcond = float(torch.finfo(S.dtype).eps) * max(V.shape[-2:])
+    keep = (sv > 0) & (sv >= rcond * sv[..., :1])
+    s_inv = torch.where(keep, 1 / torch.where(keep, sv, torch.ones_like(sv)), 0.0)
+    with exact_f32():
+        sol = Vh.transpose(-2, -1) @ (s_inv[..., None] * (U.transpose(-2, -1) @ flatS))
+    return sol[..., 0].reshape(*bshape, order + 1).transpose(-2, -1)
+
+
+def tonnetz(*, y: Any = None, sr: float = 22050, chroma: Any = None, **kwargs: Any) -> torch.Tensor:
+    """Tonal centroids ``(..., 6, T)``: each frame's chroma (scaled to unit sum) projected onto the
+    circles of fifths, minor thirds and major thirds (the last at half radius).
+
+    Without ``chroma`` it is :func:`chroma_cqt` of ``y`` (``kwargs`` go there).
+    """
+    if y is None and chroma is None:
+        raise ParameterError("tonnetz needs either a signal (y=) or a chromagram (chroma=)")
+    chroma = chroma_cqt(y=y, sr=sr, **kwargs) if chroma is None else as_tensor(chroma)
+    angle = np.pi * np.linspace(0, 12, num=chroma.shape[-2], endpoint=False)
+    rows = []
+    for ratio, radius in ((7.0 / 6, 1.0), (3.0 / 2, 1.0), (2.0 / 3, 0.5)):
+        rows.append(radius * np.sin(ratio * angle))
+        rows.append(radius * np.cos(ratio * angle))
+    phi = torch.as_tensor(np.stack(rows), dtype=chroma.dtype, device=chroma.device)
+    with exact_f32():
+        return torch.matmul(phi, normalize(chroma, norm=1, axis=-2))
 
 
 def rms(

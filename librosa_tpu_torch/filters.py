@@ -20,7 +20,7 @@ from .util.exceptions import ParameterError
 
 __all__ = ["mel", "chroma", "get_window", "window_sumsquare", "cq_to_chroma",
            "diagonal_filter", "window_bandwidth", "wavelet_lengths", "wavelet",
-           "WINDOW_BANDWIDTHS"]
+           "WINDOW_BANDWIDTHS", "mr_frequencies", "semitone_filterbank"]
 
 
 def get_window(window: Any, Nx: int, *, fftbins: bool = True) -> np.ndarray:
@@ -391,3 +391,55 @@ def wavelet(*, freqs: Any, sr: float = 22050, window: Any = "hann", filter_scale
         lpad = (width - len(atom)) // 2
         rows.append(np.pad(atom, (lpad, width - len(atom) - lpad), **{"mode": "constant", **kwargs}))
     return np.asarray(rows, dtype=dtype), lengths
+
+
+# ---------------------------------------------------------------------------
+# multirate semitone filterbank (for iirt)
+# ---------------------------------------------------------------------------
+
+
+def _multirate_fb(center_freqs: Optional[np.ndarray] = None,
+                  sample_rates: Optional[np.ndarray] = None, Q: float = 25.0,
+                  passband_ripple: float = 1, stopband_attenuation: float = 50,
+                  ftype: str = "ellip", flayout: str = "sos") -> Tuple[list, np.ndarray]:
+    """One band-pass IIR filter per centre frequency, designed at its own sample rate.
+
+    Each passband spans ``fc +- fc / (2 Q)``, its stopband twice as wide;
+    ``scipy.signal.iirdesign`` designs it in ``flayout``.
+    """
+    if center_freqs is None or sample_rates is None:
+        raise ParameterError("the multirate bank needs both center_freqs and sample_rates")
+    if center_freqs.shape != sample_rates.shape:
+        raise ParameterError(f"one sample rate per center frequency: got {center_freqs.shape} "
+                             f"centers vs {sample_rates.shape} rates")
+    half_bw = center_freqs / (2.0 * float(Q))
+    bank = [scipy.signal.iirdesign(np.array([fc - hb, fc + hb]) / ny,
+                                   np.array([fc - 2 * hb, fc + 2 * hb]) / ny,
+                                   passband_ripple, stopband_attenuation, analog=False,
+                                   ftype=ftype, output=flayout)
+            for fc, ny, hb in zip(center_freqs, 0.5 * sample_rates, half_bw)]
+    return bank, sample_rates
+
+
+def mr_frequencies(tuning: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Centre frequencies and sample rates of the semitone filterbank: MIDI 24-59 at 882 Hz,
+    60-93 at 4410 Hz and 94-108 at 22050 Hz, each shifted by ``tuning`` semitones."""
+    center_freqs = midi_to_hz(np.arange(24 + tuning, 109 + tuning))
+    sample_rates = np.asarray(36 * [882.0] + 34 * [4410.0] + 15 * [22050.0])
+    return center_freqs, sample_rates
+
+
+def semitone_filterbank(*, center_freqs: Optional[np.ndarray] = None, tuning: float = 0.0,
+                        sample_rates: Optional[np.ndarray] = None, flayout: str = "ba",
+                        **kwargs: Any) -> Tuple[list, np.ndarray]:
+    """The multirate semitone filterbank: a list of filters (``'ba'`` or ``'sos'``) and the sample
+    rate of each.
+
+    Without ``center_freqs`` and ``sample_rates``, the 85 bands of
+    :func:`mr_frequencies` at ``tuning``. ``kwargs`` go to the designer
+    (``Q``, ``passband_ripple``, ``stopband_attenuation``, ``ftype``).
+    """
+    if center_freqs is None and sample_rates is None:
+        center_freqs, sample_rates = mr_frequencies(tuning)
+    return _multirate_fb(center_freqs=center_freqs, sample_rates=sample_rates, flayout=flayout,
+                         **kwargs)

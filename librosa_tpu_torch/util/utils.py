@@ -16,7 +16,12 @@ from .exceptions import ParameterError
 __all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax", "localmin",
            "dtype_r2c", "dtype_c2r", "abs2", "phasor", "softmask", "sparsify_rows", "frame",
            "is_positive_int", "valid_int", "fix_frames", "index_to_slice", "sync", "peak_pick",
-           "shear", "fill_off_diagonal", "axis_sort"]
+           "shear", "fill_off_diagonal", "axis_sort", "MAX_MEM_BLOCK", "valid_audio",
+           "valid_intervals", "cyclic_gradient", "stack", "count_unique", "is_unique",
+           "buf_to_float", "interp_broadcast"]
+
+# the upstream block size in bytes, kept for the API; nothing in the port blocks by it
+MAX_MEM_BLOCK = 2**8 * 2**10
 
 # numpy's names for padding modes, as torch.nn.functional.pad knows them
 _TORCH_PAD_MODES = {"constant": "constant", "reflect": "reflect", "edge": "replicate",
@@ -680,3 +685,138 @@ def axis_sort(S: Any, *, axis: int = -1, index: bool = False,
     order = torch.argsort(peaks, stable=True).to(S.device)
     permuted = S.index_select(axis % 2, order)
     return (permuted, order) if index else permuted
+
+
+def valid_audio(y: Any, *, mono: bool = False) -> bool:
+    """True if ``y`` is audio: a floating-point array of at least one dimension, finite everywhere.
+
+    A tensor is checked where it lies (its finiteness is one flag read back
+    from the device) and, as in the JAX package for a device array, without
+    the mono check; anything else is checked as a numpy array, where
+    ``mono=True`` also asks for one dimension. Raises ``ParameterError`` on
+    the first problem.
+    """
+    on_device = isinstance(y, torch.Tensor)
+    if not on_device:
+        y = np.asarray(y)
+    problems = []
+    floating = y.dtype.is_floating_point if on_device else np.issubdtype(y.dtype, np.floating)
+    if not floating:
+        problems.append("Audio data must be floating-point")
+    if y.ndim == 0:
+        problems.append(f"Audio data must be at least one-dimensional, given y.shape={tuple(y.shape)}")
+    if mono and not on_device and y.ndim != 1:
+        problems.append(f"Invalid shape for monophonic audio: ndim={y.ndim}")
+    if not problems:
+        finite = bool(torch.isfinite(y).all()) if on_device else bool(np.isfinite(y).all())
+        if not finite:
+            problems.append("Audio buffer is not finite everywhere")
+    if problems:
+        raise ParameterError(problems[0])
+    return True
+
+
+def valid_intervals(intervals: Any) -> bool:
+    """True if ``intervals`` is an ``(n, 2)`` array of ``[start, end]`` rows with ``end >= start``."""
+    ivals = _host(intervals)
+    if ivals.shape[-1:] != (2,) or ivals.ndim != 2:
+        raise ParameterError(f"interval arrays are (n, 2)-shaped; got {ivals.shape}")
+    if (ivals[:, 1] - ivals[:, 0] < 0).any():
+        raise ParameterError("every interval needs end >= start")
+    return True
+
+
+def cyclic_gradient(data: Any, *, edge_order: int = 1, axis: int = -1) -> torch.Tensor:
+    """The gradient of a periodic signal along ``axis``: ``(x[n+1] - x[n-1]) / 2`` with wrap-around.
+
+    Every sample of a periodic signal is an interior point, so ``edge_order``
+    (which changes only ``np.gradient``'s edges) changes nothing.
+    """
+    data = as_tensor(data)
+    return (torch.roll(data, -1, dims=axis) - torch.roll(data, 1, dims=axis)) / 2.0
+
+
+def stack(arrays: Sequence[Any], *, axis: int = 0) -> torch.Tensor:
+    """The arrays, all of one shape, stacked along a new ``axis``."""
+    if not arrays:
+        raise ParameterError("no input arrays provided to stack")
+    tensors = [as_tensor(a) for a in arrays]
+    if len({tuple(t.shape) for t in tensors}) > 1:
+        raise ParameterError("all input arrays must have the same shape")
+    return torch.stack([t.to(tensors[0].device) for t in tensors], dim=axis)
+
+
+def count_unique(data: Any, *, axis: int = -1) -> torch.Tensor:
+    """The number of distinct values in each slice along ``axis``: a sort and its change points."""
+    data = as_tensor(data)
+    s = torch.sort(data, dim=axis).values
+    return (torch.diff(s, dim=axis) != 0).sum(dim=axis) + 1
+
+
+def is_unique(data: Any, *, axis: int = -1) -> torch.Tensor:
+    """True for each slice along ``axis`` whose values are all distinct."""
+    data = as_tensor(data)
+    return count_unique(data, axis=axis) == data.shape[axis]
+
+
+def buf_to_float(x: Any, *, n_bytes: int = 2, dtype: Any = np.float32) -> np.ndarray:
+    """Little-endian signed PCM of ``n_bytes`` a sample as floats in ``[-1, 1)``, on the host."""
+    ints = np.frombuffer(x, dtype=f"<i{n_bytes}")
+    return ints.astype(dtype) / float(2 ** (8 * n_bytes - 1))
+
+
+def interp_broadcast(*, x1: Any, x1_pos: Any, x2: Any, x2_pos: Any, interp_pos: Any = None,
+                     op: Optional[Callable] = np.multiply, kind: str = "linear",
+                     fill_value: float = 0, axis: int = -2):
+    """``op`` of ``x1`` and ``x2``, each first resampled along ``axis`` onto ``interp_pos``.
+
+    ``x1`` is sampled at ``x1_pos`` and ``x2`` at ``x2_pos``; ``interp_pos``
+    defaults to ``x1_pos``. Queries outside a grid get ``fill_value``. With
+    ``op=None`` the two resampled arrays are returned. Runs on the host in
+    numpy (linear) or scipy (other ``kind``), as the JAX package does.
+    """
+    x1, x2 = _host(x1), _host(x2)
+    targets = _host(x1_pos if interp_pos is None else interp_pos)
+    shallow = min(x1.ndim, x2.ndim)
+    if not -shallow <= axis < shallow:
+        raise ParameterError(f"axis={axis} does not exist in both inputs "
+                             f"(ndim {x1.ndim} and {x2.ndim})")
+    y1 = _regrid_1d(x1, _host(x1_pos), targets, axis=axis, kind=kind, fill_value=fill_value)
+    y2 = _regrid_1d(x2, _host(x2_pos), targets, axis=axis, kind=kind, fill_value=fill_value)
+    if op is None:
+        return y1, y2
+    try:
+        np.broadcast_shapes(y1.shape, y2.shape)
+    except ValueError as exc:
+        raise ParameterError(f"Resampled shapes {y1.shape} and {y2.shape} (from inputs "
+                             f"{x1.shape} / {x2.shape} along axis={axis}) do not broadcast") from exc
+    return op(y1, y2)
+
+
+def _regrid_1d(values: np.ndarray, grid: np.ndarray, targets: np.ndarray, *, axis: int,
+               kind: str, fill_value: float) -> np.ndarray:
+    """``values`` (sampled at ``grid`` along ``axis``) at ``targets``; ``fill_value`` outside.
+
+    Linear: a bracketing search and a lerp in numpy; any other ``kind``
+    goes to ``scipy.interpolate.interp1d``.
+    """
+    if kind != "linear":
+        import scipy.interpolate
+
+        fit = scipy.interpolate.interp1d(grid, values, axis=axis, kind=kind, copy=False,
+                                         bounds_error=False, fill_value=fill_value)
+        return fit(targets)
+    order = np.argsort(grid)
+    grid = grid[order]
+    values = np.take(values, order, axis=axis)
+    hi = np.clip(np.searchsorted(grid, targets, side="right"), 1, len(grid) - 1)
+    span = grid[hi] - grid[hi - 1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = np.where(span > 0, (targets - grid[hi - 1]) / span, 0.0)
+    lo_vals = np.take(values, hi - 1, axis=axis)
+    hi_vals = np.take(values, hi, axis=axis)
+    bshape = [1] * values.ndim
+    bshape[axis] = len(targets)
+    out = lo_vals + w.reshape(bshape) * (hi_vals - lo_vals)
+    inside = (targets >= grid[0]) & (targets <= grid[-1])
+    return np.where(inside.reshape(bshape), out, fill_value)

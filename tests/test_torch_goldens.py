@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import golden_cases
+from torch_threads import one_torch_thread  # noqa: F401 (autouse, one intra-op thread)
 import librosa_tpu_torch
 
 GOLDEN_DIR = Path(__file__).parent / "goldens"
@@ -35,7 +36,10 @@ PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs", "filters_chro
           "viterbi", "util_peak_pick", "util_matching", "sync_aggregates", "harmonics",
           "harmonics_2d", "util_sparsify", "dtw", "rqa", "recurrence", "cross_similarity",
           "notation", "convert_notes", "phase_vocoder", "time_stretch", "pitch_shift",
-          "remix_effect", "preemphasis", "trim_split", "nn_filter"]
+          "remix_effect", "preemphasis", "trim_split", "nn_filter", "spectral_descriptors",
+          "tonnetz", "feature_manip", "delta_configs", "mfcc_to_mel", "util_core", "util_more",
+          "fused_branch_configs", "pcen", "pcen_maxfilter", "reassigned", "iirt", "iirt_ba",
+          "fmt"]
 
 
 def _to_host(x):

@@ -32,6 +32,9 @@ def test_the_alignment_and_effects_modules_pull_in_no_jax():
         "import librosa_tpu_torch.segment, librosa_tpu_torch.ops.knn\n"
         "import librosa_tpu_torch.effects, librosa_tpu_torch.decompose\n"
         "import librosa_tpu_torch.sequence, librosa_tpu_torch.core.notation\n"
+        "import librosa_tpu_torch.util._nnls, librosa_tpu_torch.feature.utils\n"
+        "import librosa_tpu_torch.feature.inverse, librosa_tpu_torch.ops.spline\n"
+        "import librosa_tpu_torch.core.spectrum_ext\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'librosa_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -64,6 +67,33 @@ def test_alignment_and_effects_try_the_card_by_default(monkeypatch):
         L.set_device(prev)
 
 
+def test_inversion_pcen_and_spectral_extensions_try_the_card_by_default(monkeypatch):
+    """Without set_device('cpu') each entry point puts its array on cuda and fails here."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = L.get_device()
+    L.set_device("cuda")
+    y = np.random.RandomState(0).randn(4096).astype(np.float32)
+    S = np.abs(np.random.RandomState(1).randn(257, 20)).astype(np.float32)
+    calls = [lambda: L.util.nnls(np.ones((4, 6), np.float32), np.ones((4, 3), np.float32)),
+             lambda: L.feature.inverse.mel_to_stft(np.ones((32, 5), np.float32), n_fft=512,
+                                                   n_mels=32),
+             lambda: L.feature.spectral_contrast(S=S),
+             lambda: L.feature.delta(S),
+             lambda: L.pcen(S),
+             lambda: L.iirt(y, res_type="polyphase"),
+             lambda: L.reassigned_spectrogram(y, n_fft=512),
+             lambda: L.fmt(y)]
+    try:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+        # a CPU tensor keeps its device
+        assert L.pcen(torch.from_numpy(S)).device.type == "cpu"
+        assert L.fmt(torch.from_numpy(y[:256])).device.type == "cpu"
+    finally:
+        L.set_device(prev)
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -80,7 +110,10 @@ def test_no_source_imports_jax_or_the_jax_package():
             "librosa_tpu_torch/core/pitch.py", "librosa_tpu_torch/ops/ola_norm.py",
             "librosa_tpu_torch/io/_native.py", "librosa_tpu_torch/util/files.py",
             "librosa_tpu_torch/beat.py", "librosa_tpu_torch/ops/viterbi.py",
-            "librosa_tpu_torch/segment.py", "librosa_tpu_torch/ops/knn.py"} <= names
+            "librosa_tpu_torch/segment.py", "librosa_tpu_torch/ops/knn.py",
+            "librosa_tpu_torch/util/_nnls.py", "librosa_tpu_torch/feature/utils.py",
+            "librosa_tpu_torch/feature/inverse.py", "librosa_tpu_torch/ops/spline.py",
+            "librosa_tpu_torch/core/spectrum_ext.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
