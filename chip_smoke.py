@@ -138,6 +138,21 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    against float64 (scipy's ``lfilter``, three float64 STFTs, ``sosfiltfilt``
    of the port's resampled track per band, ``interp1d`` and ``rfft``);
    times and peak memory;
+4n. the rest of ``segment`` and the infrastructure: the chirp batch's
+   ``mfcc``, then ``recurrence_matrix(mode='affinity')`` of tracks 0 and 1
+   stacked dense into ``(2, 8193, 8193)`` float32 on the card,
+   ``path_enhance(R, 15)`` (against float64 ``scipy.ndimage.convolve`` on a
+   1024 x 1024 crop of track 0, and the full run's interior of that crop),
+   ``timelag_filter`` with scipy's median filter on that crop (host; equal
+   to the median of the lag matrix sheared here), the
+   two-stage FFTs (``ops.ctfft``) of 5 s of the main buffer against float64
+   and beside ``torch.fft``, ``resample(res_type='fft')`` under the
+   ``'matmul'`` backend against ``'auto'`` and float64; ``calibrate``'s
+   ceilings beside the datasheet's, ``dispatch_profile`` of configs 1 and 5
+   with the profiler's count of the mel and dB kernels held equal to the
+   wrappers' counters and the device's busy share, and ``roofline`` of
+   ``path_enhance``; times, path_enhance's peak memory and the bound of its
+   dense work;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024, and a strided row
@@ -3255,6 +3270,246 @@ def pcen_spectrum_ext_phase(torch, L, device, y, win) -> dict:
             "snr_db": snrs}
 
 
+PATH_N = 15                   # path_enhance(R, 15): upstream's docstring example, 7 filters
+MIN_PATH_SNR_DB = 110.0       # the path_enhance golden's floor (142.8 on the card)
+PATH_CROP = 1024              # the float64 check's crop of track 0's R (scipy convolves on the host)
+MAX_PATH_FILTER_ERR = 1e-12   # filters.diagonal_filter against the hann lines built here
+CTFFT_N = 110250              # 5 s at 22050 Hz: 315 x 350, not a power of two
+MIN_CTFFT_SNR_DB = 115.0      # complex64 matrix products against float64 (125.1 on the card)
+MIN_CTFFT_ROUNDTRIP_SNR_DB = 115.0   # ifft_arbitrary(fft_arbitrary(x)) against x (123.2)
+MIN_RESAMPLE_BACKEND_SNR_DB = 115.0  # 'matmul' against 'auto' and against float64 (121.9, 122.7)
+# the H100 SXM datasheet's rates that PERF.md's bounds use, beside calibrate()'s
+DATASHEET = {"matmul_f32_flops": H100_F32_FLOP_S, "matmul_bf16_flops": 989e12,
+             "hbm_bytes_per_s": H100_HBM_BYTES_S}
+
+
+def path_filters64(n, *, n_filters=7, max_ratio=2.0):
+    """The slopes and path_enhance's filters, built here in float64 from ``np.hanning`` as
+    upstream librosa builds them: the symmetric hann of length ``n`` on the main diagonal, the
+    plane rotated by ``45 - degrees(arctan(slope))`` with a quintic spline and no prefilter,
+    negative ringing clipped, the taps summing to 1."""
+    import scipy.ndimage
+
+    slopes = np.logspace(np.log2(1 / max_ratio), np.log2(max_ratio), n_filters, base=2)
+    filters = []
+    for slope in slopes:
+        line = np.diag(np.hanning(n))
+        turn = 45.0 - np.degrees(np.arctan(slope))
+        if not np.isclose(turn, 0.0):
+            line = np.clip(scipy.ndimage.rotate(line, turn, order=5, prefilter=False), 0.0, None)
+        filters.append(line / line.sum())
+    return slopes, filters
+
+
+def path_enhance64(R, filters):
+    """``path_enhance`` in float64 numpy and scipy: ``scipy.ndimage.convolve(mode='reflect')``
+    with each unflipped filter of ``path_filters64``, the maximum, clipped at 0."""
+    import scipy.ndimage
+
+    out = None
+    for f in filters:
+        conv = scipy.ndimage.convolve(R, f, mode="reflect")
+        out = conv if out is None else np.maximum(out, conv)
+    return np.maximum(out, 0.0)
+
+
+def timelag_median64(R, size):
+    """``timelag_filter(scipy.ndimage.median_filter)(R, size=size)`` from its definition: ``R``
+    padded below by zeros to ``(2n, n)``, column ``j`` rolled up by ``j`` (the lag matrix),
+    the median filter there, column ``j`` rolled back down by ``j``, the first ``n`` rows."""
+    import scipy.ndimage
+
+    n = R.shape[0]
+    rows, cols = np.arange(2 * n)[:, None], np.arange(n)[None, :]
+    lag = np.concatenate([R, np.zeros_like(R)], axis=0)[(rows + cols) % (2 * n), cols]
+    return scipy.ndimage.median_filter(lag, size=size)[(rows - cols) % (2 * n), cols][:n]
+
+
+def segment_infrastructure_phase(torch, L, device, y) -> dict:
+    """Phase 4n: path_enhance at (2, 8193, 8193) on the chirp batch's affinity, timelag_filter,
+    the two-stage FFTs and the 'matmul' backend's resample, then calibrate, dispatch_profile
+    of configs 1 and 5 (its kernel counts against the wrappers') and roofline."""
+    import scipy.ndimage
+    import scipy.signal
+
+    from librosa_tpu_torch import entry
+    from librosa_tpu_torch.filters import diagonal_filter
+    from librosa_tpu_torch.ops import ctfft, db_scale, fft, fused_stft, median, ola_norm
+    from librosa_tpu_torch.util import profiling
+
+    chirps = chirp_batch(torch, L, device)
+    x = y[:, :CTFFT_N].contiguous()
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
+    host = {}
+
+    def host_s(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host[label] = time.perf_counter() - t0
+        return out
+
+    mfcc = L.feature.mfcc(y=chirps, sr=SR)
+    R0, R1 = (host_s(f"recurrence_matrix affinity, track {i}",
+                     lambda i=i: L.segment.recurrence_matrix(mfcc[i], mode="affinity"))
+              for i in (0, 1))
+    R = torch.stack([torch.from_numpy(r.astype(np.float32)) for r in (R0, R1)]).to(device)
+    del R1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    P = L.segment.path_enhance(R, PATH_N)
+    torch.cuda.synchronize()
+    path_peak = torch.cuda.max_memory_allocated() - held
+    X = ctfft.fft_arbitrary(x, CTFFT_N)
+    back = ctfft.ifft_arbitrary(X, CTFFT_N)
+    fft.set_stft_backend("matmul")
+    try:
+        r_matmul = L.resample(x, orig_sr=SR, target_sr=RECON_SR, res_type="fft")
+    finally:
+        fft.set_stft_backend("auto")
+    r_auto = L.resample(x, orig_sr=SR, target_sr=RECON_SR, res_type="fft")
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "ola_norm": ola_norm.launches, "median_filter": median.launches}
+    t = mfcc.shape[-1]
+    print(f"segment and infrastructure: chirps {tuple(chirps.shape)} -> mfcc {tuple(mfcc.shape)}"
+          f" -> R {tuple(R.shape)} {R.dtype} ({R.numel() * 4} bytes on the card) -> "
+          f"path_enhance {tuple(P.shape)}; fft_arbitrary "
+          f"{tuple(X.shape)} {X.dtype}; resample {tuple(r_matmul.shape)}; launches {counts}; "
+          f"path_enhance's peak {path_peak} bytes above the {held} held ({base_bytes} before "
+          "the phase)")
+    if counts != {"stft_mel": 1, "db_scale": 1, "ola_norm": 0, "median_filter": 0}:
+        raise AssertionError(f"phase 4n launched {counts}: mfcc takes the mel and dB kernels once")
+    if (tuple(P.shape) != (2, t, t) or not bool(torch.isfinite(P).all())
+            or float(P.min()) < 0):
+        raise AssertionError("path_enhance: shape, sign or finiteness")
+
+    # path_enhance against float64 on a crop, and the full run's interior of that crop; its
+    # filters built here, and the package's host tables held against them
+    crop64 = R0[:PATH_CROP, :PATH_CROP].astype(np.float64)
+    slopes, filters = path_filters64(PATH_N)
+    table_err = max(float(np.abs(diagonal_filter("hann", PATH_N, slope=r) - f).max())
+                    for r, f in zip(slopes, filters))
+    print(f"filters.diagonal_filter against the filters built from np.hanning: max abs "
+          f"{table_err:.3e} (floor {MAX_PATH_FILTER_ERR:g})")
+    if not table_err <= MAX_PATH_FILTER_ERR:
+        raise AssertionError(f"filters.diagonal_filter is {table_err:.3e} off the hann lines")
+    t0 = time.perf_counter()
+    want = path_enhance64(crop64, filters)
+    host["float64 path_enhance reference on the crop (scipy)"] = time.perf_counter() - t0
+    got = L.segment.path_enhance(R[0, :PATH_CROP, :PATH_CROP], PATH_N).cpu().numpy()
+    edge = 2 * PATH_N
+    inner = (slice(edge, PATH_CROP - edge),) * 2
+    snrs = {"path_enhance crop vs float64": snr_db(got, want),
+            f"path_enhance {tuple(R.shape)}, the crop's interior vs float64": snr_db(
+                P[0, :PATH_CROP, :PATH_CROP].cpu().numpy()[inner], want[inner])}
+    del R0
+
+    # timelag_filter on the same crop, equal to the median of the host's own shears
+    lagged = host_s("timelag_filter(median_filter, size=(1, 7)), the crop", lambda: (
+        L.segment.timelag_filter(scipy.ndimage.median_filter)(crop64, size=(1, 7))))
+    if not np.array_equal(lagged, timelag_median64(crop64, (1, 7))):
+        raise AssertionError("timelag_filter differs from the median of the lag matrix")
+
+    taps = [(int(np.count_nonzero(f)), f.shape) for f in filters]
+    pixels = R.numel()
+    dense_flops = sum(2 * f.size for f in filters) * pixels
+    ops_ms = 1e3 * dense_flops / H100_F32_FLOP_S
+    bytes_ms = 1e3 * 2 * 4 * pixels / H100_HBM_BYTES_S
+    path_ms = time_ms(torch, lambda: L.segment.path_enhance(R, PATH_N), 3)
+    print("path_enhance filters (nonzero taps of the dense kh x kw): " + ", ".join(
+        f"slope {r:.3f}: {nz} of {s[0]}x{s[1]}" for r, (nz, s) in zip(slopes, taps)))
+    print(f"path_enhance {tuple(R.shape)}: {path_ms:.4f} ms (CUDA events); bound of its dense "
+          f"work {max(ops_ms, bytes_ms):.4f} ms by {'operations' if ops_ms >= bytes_ms else 'bytes'}"
+          f" (2 x {sum(f.size for f in filters)} taps x {pixels} pixels = {dense_flops:.4e} flop "
+          f"at 33.5e12 FMA/s: {ops_ms:.4f} ms; R read and the output written once: "
+          f"{bytes_ms:.4f} ms; H100 SXM datasheet)")
+
+    # the two-stage FFTs against float64, and the 'matmul' backend's resample
+    x0 = x[0].cpu().numpy().astype(np.float64)
+    X0, X64 = X[0].cpu().numpy(), np.fft.fft(x0)
+    snrs["fft_arbitrary track 0 vs float64"] = snr_db(np.stack([X0.real, X0.imag]),
+                                                      np.stack([X64.real, X64.imag]))
+    snrs["ifft_arbitrary(fft_arbitrary(x)) vs x"] = snr_db(back.real.cpu().numpy(),
+                                                           x.cpu().numpy())
+    snrs["resample 'matmul' vs 'auto'"] = snr_db(r_matmul.cpu().numpy(), r_auto.cpu().numpy())
+    snrs["resample 'matmul' track 0 vs float64 scipy"] = snr_db(
+        r_matmul[0].cpu().numpy(), scipy.signal.resample(x0, r_matmul.shape[-1]))
+    floors = {k: MIN_PATH_SNR_DB for k in snrs if k.startswith("path_enhance")}
+    floors.update({"fft_arbitrary track 0 vs float64": MIN_CTFFT_SNR_DB,
+                   "ifft_arbitrary(fft_arbitrary(x)) vs x": MIN_CTFFT_ROUNDTRIP_SNR_DB,
+                   "resample 'matmul' vs 'auto'": MIN_RESAMPLE_BACKEND_SNR_DB,
+                   "resample 'matmul' track 0 vs float64 scipy": MIN_RESAMPLE_BACKEND_SNR_DB})
+    print("segment and infrastructure checks: " + ", ".join(
+        f"{k} {v:.1f} dB (floor {floors[k]})" for k, v in snrs.items()))
+    for key, s in snrs.items():
+        if not s >= floors[key]:
+            raise AssertionError(f"{key}: {s:.1f} dB < {floors[key]}")
+    device_ms = {
+        f"fft_arbitrary {tuple(x.shape)}": time_ms(torch, lambda: ctfft.fft_arbitrary(x, CTFFT_N),
+                                                   5),
+        "torch.fft.fft, the same input": time_ms(torch, lambda: torch.fft.fft(x), 5),
+        "ifft_arbitrary": time_ms(torch, lambda: ctfft.ifft_arbitrary(X, CTFFT_N), 5),
+        "torch.fft.ifft, the same input": time_ms(torch, lambda: torch.fft.ifft(X), 5),
+        "resample res_type='fft', 'auto'": time_ms(
+            torch, lambda: L.resample(x, orig_sr=SR, target_sr=RECON_SR, res_type="fft"), 5),
+    }
+    fft.set_stft_backend("matmul")
+    try:
+        device_ms["resample res_type='fft', 'matmul'"] = time_ms(
+            torch, lambda: L.resample(x, orig_sr=SR, target_sr=RECON_SR, res_type="fft"), 5)
+    finally:
+        fft.set_stft_backend("auto")
+    device_ms[f"path_enhance {tuple(R.shape)}"] = path_ms
+    del X, back, r_matmul, r_auto, P
+
+    # the profiler: ceilings, launch counts against the wrappers', busy share, a roofline
+    ceilings = profiling.calibrate()
+    print("calibrate() (measured; datasheet in brackets): " + ", ".join(
+        f"{k} {getattr(ceilings, k):.4e} ({v:.4e})" for k, v in DATASHEET.items()))
+    forward1, _ = entry.entry()
+    forward5, _ = entry.onset_beat_pyin()
+    y5 = config5_signal(torch, MAIN_SHAPE, 5, device)
+    profiles = {}
+    for label, fn in (("config 1 entry", lambda: forward1(y)),
+                      ("config 5 onset_beat_pyin", lambda: forward5(y5))):
+        fn()
+        torch.cuda.synchronize()
+        fused_stft.launches = db_scale.launches = 0
+        prof = profiling.dispatch_profile(fn, warmup=0)
+        seen = {name: sum(c for k, c in prof["by_function"].items() if symbol in k)
+                for name, symbol in (("stft_mel", "stft_mel_kernel"), ("db_scale", "db_apply"))}
+        wrappers = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches}
+        busy = prof["device_s"] / prof["wall_s"]
+        top = list(prof["by_function"].items())[:8]
+        print(f"dispatch_profile {label}: launches {prof['launches']}, transfers "
+              f"{prof['transfers']}, eager ops {prof['eager']}, kernels by symbol {seen} against "
+              f"the wrappers' {wrappers}; device busy {prof['device_s'] * 1e3:.4f} ms of "
+              f"{prof['wall_s'] * 1e3:.4f} ms wall, share {busy:.4f}; top kernels "
+              + "; ".join(f"{k[:70]} x{c}" for k, c in top))
+        if seen != wrappers or wrappers["stft_mel"] < 1:
+            raise AssertionError(f"{label}: the profiler saw {seen}, the wrappers counted "
+                                 f"{wrappers}")
+        profiles[label] = {"launches": prof["launches"], "transfers": prof["transfers"],
+                           "eager": prof["eager"], "kernels_seen": seen, "busy_share": busy,
+                           "device_ms": prof["device_s"] * 1e3, "wall_ms": prof["wall_s"] * 1e3}
+    del y5
+    report = profiling.roofline(lambda r: L.segment.path_enhance(r, PATH_N), R,
+                                ceilings=ceilings)
+    print(f"roofline path_enhance {tuple(R.shape)} (torch ops only): {report}; flops "
+          f"{report.flops}, bytes {report.bytes_accessed}")
+    print("segment and infrastructure times (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in device_ms.items()))
+    print("segment and infrastructure host times (s, host clock): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    return {"launches": counts, "device_ms": device_ms, "host_s": host, "snr_db": snrs,
+            "profiles": profiles, "path_peak_bytes": path_peak,
+            "ceilings": {k: getattr(ceilings, k) for k in DATASHEET}}
+
+
 def main() -> int:
     import torch
 
@@ -3444,6 +3699,7 @@ def main() -> int:
     effects = effects_phase(torch, L, device, y, win)
     features = features_inversion_phase(torch, L, device, y, win)
     pcen_ext = pcen_spectrum_ext_phase(torch, L, device, y, win)
+    seg_infra = segment_infrastructure_phase(torch, L, device, y)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
@@ -3498,7 +3754,8 @@ def main() -> int:
                           (ola_entry, "ola_norm"), (median_entry, "median_filter"),
                           (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi")):
         for path, phase in (("alignment_structure", structure), ("effects", effects),
-                            ("features_inversion", features), ("pcen_spectrum_ext", pcen_ext)):
+                            ("features_inversion", features), ("pcen_spectrum_ext", pcen_ext),
+                            ("segment_infrastructure", seg_infra)):
             entry["launches"] += phase["launches"].get(kernel, 0)
             entry["launches_by_path"][path] = phase["launches"].get(kernel, 0)
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,

@@ -13,7 +13,9 @@ The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
 ``feature.rms``, the tempograms and ``feature.tempo``, ``feature.delta``,
 ``feature.stack_memory`` and the inversions in ``feature.inverse``; ``filters.mel``,
 ``filters.chroma``, ``filters.get_window``, ``filters.window_sumsquare``;
-``util.normalize``, ``util.nnls`` and friends)
+``util.normalize``, ``util.nnls`` and friends; ``util.profiling``; the
+on-disk ``cache``; ``display``, loaded at its first use so that importing
+the package does not import matplotlib)
 and the same array layout: time on the last axis, bins on axis -2, any
 leading dims.
 
@@ -31,6 +33,7 @@ function runs its plain PyTorch version.
 
 from __future__ import annotations
 
+from ._cache import cache  # noqa: F401
 from ._device import get_device, set_device  # noqa: F401
 from .core.audio import *  # noqa: F401,F403
 from .core.constantq import *  # noqa: F401,F403
@@ -47,3 +50,15 @@ from .version import show_versions, version as __version__  # noqa: F401
 
 from . import (beat, core, decompose, effects, feature, filters, io, onset, ops,  # noqa: F401
                segment, sequence, util)
+
+
+def __getattr__(name: str):
+    if name == "display":
+        import importlib
+
+        return importlib.import_module(".display", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | {"display"})

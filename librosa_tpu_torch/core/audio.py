@@ -481,10 +481,22 @@ def _resample_fft(x: torch.Tensor, *, num: int) -> torch.Tensor:
 
     The spectrum is cut or zero-extended, with the bin at the shorter
     length's Nyquist frequency folded (down) or split (up). ``torch.fft``
-    takes any length.
+    takes any length; under the ``'matmul'`` STFT backend
+    (:func:`~librosa_tpu_torch.ops.fft.set_stft_backend`) lengths other than
+    powers of two go through the complex FFTs of
+    :mod:`~librosa_tpu_torch.ops.ctfft` (complex64, complex128 for float64
+    input), the kept bins then their conjugate mirror, as in the JAX package.
     """
+    from ..ops.ctfft import _is_pow2, fft_arbitrary, ifft_arbitrary
+    from ..ops.fft import _resolved_backend
+
     n = x.shape[-1]
-    X = torch.fft.rfft(x, dim=-1)
+    two_stage = _resolved_backend() == "matmul" and not (_is_pow2(n) and _is_pow2(num))
+    if two_stage:
+        X = fft_arbitrary(x.to(torch.complex128 if x.dtype == torch.float64
+                               else torch.complex64), n)
+    else:
+        X = torch.fft.rfft(x, dim=-1)
     n_min = min(num, n)
     nyq = n_min // 2 + 1
     Y = X.new_zeros((*x.shape[:-1], num // 2 + 1))
@@ -494,7 +506,12 @@ def _resample_fft(x: torch.Tensor, *, num: int) -> torch.Tensor:
             Y[..., n_min // 2] *= 2.0
         elif num > n:
             Y[..., n // 2] *= 0.5
-    return torch.fft.irfft(Y, n=num, dim=-1) * (float(num) / float(n))
+    if two_stage:
+        mirror = (Y[..., 1:-1] if num % 2 == 0 else Y[..., 1:]).flip(-1).conj()
+        y = ifft_arbitrary(torch.cat([Y, mirror], dim=-1), num).real
+    else:
+        y = torch.fft.irfft(Y, n=num, dim=-1)
+    return y * (float(num) / float(n))
 
 
 def _interp_grid(n_samples: int, ratio: float,
@@ -792,15 +809,21 @@ def autocorrelate(y: Any, *, max_size: Optional[int] = None, axis: int = -1) -> 
     """Autocorrelation of ``y`` along ``axis`` for the first ``max_size`` lags (default: all).
 
     ``irfft(|rfft(y)|**2)`` (``ifft`` / ``fft`` for complex input) over a
-    length of at least ``2 n - 1`` (scipy's next fast length), so that the
-    correlation is linear, not circular. Lag 0 is the energy.
+    length of at least ``2 n - 1`` (scipy's next fast length; the next power
+    of two under the ``'matmul'`` STFT backend, as in the JAX package), so
+    that the correlation is linear, not circular. Lag 0 is the energy.
     """
     import scipy.fft
+
+    from ..ops.fft import _resolved_backend
 
     y = as_tensor(y)
     n = y.shape[axis]
     max_size = n if max_size is None else int(min(max_size, n))
-    n_pad = scipy.fft.next_fast_len(2 * n - 1, real=True)
+    if _resolved_backend() == "matmul":
+        n_pad = 1 << (2 * n - 2).bit_length()
+    else:
+        n_pad = scipy.fft.next_fast_len(2 * n - 1, real=True)
     if y.is_complex():
         spec = torch.fft.fft(y, n=n_pad, dim=axis)
         power = (spec.real.square() + spec.imag.square()).to(spec.dtype)

@@ -15,6 +15,7 @@ from typing import Any, Collection, List, Tuple, Union
 
 import numpy as np
 
+from .._cache import cache
 from ..util.exceptions import ParameterError
 
 __all__ = ["interval_frequencies", "pythagorean_intervals", "plimit_intervals"]
@@ -28,6 +29,7 @@ def _octave_fold(log2_ratio: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return log2_ratio - octaves, octaves.astype(int)
 
 
+@cache(level=10)
 def interval_frequencies(n_bins: int, *, fmin: float, intervals: Union[str, Collection[float]],
                          bins_per_octave: int = 12, tuning: float = 0.0,
                          sort: bool = True) -> np.ndarray:
@@ -58,6 +60,7 @@ def interval_frequencies(n_bins: int, *, fmin: float, intervals: Union[str, Coll
     return (np.sort(freqs) if sort else freqs) * fmin
 
 
+@cache(level=10)
 def pythagorean_intervals(*, bins_per_octave: int = 12, sort: bool = True,
                           return_factors: bool = False) -> Any:
     """The first ``bins_per_octave`` fifths ``3**k``, each brought into one octave by powers of 2.
@@ -133,6 +136,7 @@ def _grow(primes: Tuple[int, ...], n_intervals: int) -> Tuple[Tuple[int, ...], .
     return tuple(chosen)
 
 
+@cache(level=10)
 def plimit_intervals(*, primes: Any, bins_per_octave: int = 12, sort: bool = True,
                      return_factors: bool = False) -> Any:
     """``bins_per_octave`` just intervals over the odd ``primes``, grown by harmonic distance.

@@ -6,5 +6,6 @@ the kernels of ``ops/staged_probe.py`` at the copy geometry of the
 production mel kernel and print their times per tile.
 ``python -m librosa_tpu_torch.diagnostics.viterbi_cluster`` times the
 Viterbi kernel's cluster route at other cluster sizes and lanes a column
-than the path's.
+than the path's. ``python -m librosa_tpu_torch.diagnostics.path_enhance_routes``
+times routes for ``segment.path_enhance``'s convolutions.
 """

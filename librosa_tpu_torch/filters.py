@@ -16,6 +16,7 @@ import scipy.signal
 import torch
 
 from .core.convert import fft_frequencies, hz_to_midi, mel_frequencies, midi_to_hz
+from ._cache import cache
 from .util.exceptions import ParameterError
 
 __all__ = ["mel", "chroma", "get_window", "window_sumsquare", "cq_to_chroma",
@@ -96,6 +97,7 @@ def _mel_basis(sr: float, n_fft: int, n_mels: int, fmin: float, fmax: float,
     return out
 
 
+@cache(level=10)
 def mel(
     *,
     sr: float,
@@ -159,6 +161,7 @@ def _chroma_basis(sr: float, n_fft: int, n_chroma: int, tuning: float, ctroct: f
     return out
 
 
+@cache(level=10)
 def chroma(
     *,
     sr: float,
@@ -185,6 +188,7 @@ def chroma(
                          np.dtype(dtype).str)
 
 
+@cache(level=10)
 def window_sumsquare(
     *,
     window: Any,
@@ -226,6 +230,7 @@ def window_sumsquare(
     return rows.reshape(-1)[:n].astype(dtype)
 
 
+@cache(level=10)
 def cq_to_chroma(
     n_input: int,
     *,
@@ -265,6 +270,7 @@ def cq_to_chroma(
     return proj
 
 
+@cache(level=10)
 def diagonal_filter(window: Any, n: int, *, slope: float = 1.0,
                     angle: Optional[float] = None, zero_mean: bool = False) -> np.ndarray:
     """An ``(n, n)`` smoothing kernel: ``window`` laid along a line of the given slope.
@@ -332,6 +338,7 @@ def _relative_bandwidth(*, freqs: np.ndarray) -> np.ndarray:
     return (ratio - 1) / (ratio + 1)
 
 
+@cache(level=10)
 def wavelet_lengths(*, freqs: Any, sr: float = 22050, window: Any = "hann",
                     filter_scale: float = 1, gamma: Optional[float] = 0,
                     alpha: Any = None) -> Tuple[np.ndarray, float]:
@@ -366,6 +373,7 @@ def _fractional_window(window: Any, length: float) -> np.ndarray:
     return np.pad(win, (0, int(np.ceil(length)) - whole))
 
 
+@cache(level=10)
 def wavelet(*, freqs: Any, sr: float = 22050, window: Any = "hann", filter_scale: float = 1,
             pad_fft: bool = True, norm: Optional[float] = 1, dtype: Any = np.complex64,
             gamma: float = 0, alpha: Any = None, **kwargs: Any) -> Tuple[np.ndarray, np.ndarray]:
@@ -429,6 +437,7 @@ def mr_frequencies(tuning: float) -> Tuple[np.ndarray, np.ndarray]:
     return center_freqs, sample_rates
 
 
+@cache(level=10)
 def semitone_filterbank(*, center_freqs: Optional[np.ndarray] = None, tuning: float = 0.0,
                         sample_rates: Optional[np.ndarray] = None, flayout: str = "ba",
                         **kwargs: Any) -> Tuple[list, np.ndarray]:

@@ -1,7 +1,8 @@
 """Dense transform matrices built on the host in float64.
 
 The MFCC's DCT runs as one matrix product on the card against the matrix
-made here.
+made here, and the ``'matmul'`` backend of ``ops.fft`` runs the framed DFT
+against :func:`dft_matrices`.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["dct_matrix"]
+__all__ = ["dct_matrix", "dft_matrices"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -48,3 +49,16 @@ def dct_matrix(n: int, *, dct_type: int = 2, norm: Optional[str] = "ortho") -> n
     C = C.astype(np.float32)
     C.setflags(write=False)
     return C
+
+
+@functools.lru_cache(maxsize=16)
+def dft_matrices(n_fft: int, *, dtype: str = "float32") -> tuple:
+    """``(C, S)``, each ``(1 + n_fft // 2, n_fft)`` of ``dtype``, with
+    ``rfft(x) == C @ x - 1j * (S @ x)``. Read-only."""
+    k = np.arange(1 + n_fft // 2)[:, None]
+    t = np.arange(n_fft)[None, :]
+    ang = 2.0 * np.pi * k * t / n_fft
+    C, S = np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
+    C.setflags(write=False)
+    S.setflags(write=False)
+    return C, S

@@ -1,4 +1,5 @@
-"""Recurrence and cross-similarity graphs of feature sequences, and the time-lag shears.
+"""Recurrence and cross-similarity graphs of feature sequences, the time-lag shears,
+clustering into segments, and path enhancement.
 
 Where each part runs, as in the JAX package (``librosa_tpu/segment.py``):
 
@@ -13,7 +14,13 @@ Where each part runs, as in the JAX package (``librosa_tpu/segment.py``):
   affinity ``exp(-d / bandwidth)``;
 - other metrics search with sklearn's ``NearestNeighbors`` on the host;
 - :func:`recurrence_to_lag` and :func:`lag_to_recurrence` shear on the
-  host, dense by one modular gather, sparse by remapping coordinates.
+  host, dense by one modular gather, sparse by remapping coordinates;
+  :func:`timelag_filter` runs a host filter between the two;
+- :func:`agglomerative` and :func:`subsegment` cluster on the host with
+  sklearn's Ward clustering (a tensor comes to the host first);
+- :func:`path_enhance` convolves on the device of its input: one
+  symmetric pad, then one ``conv2d`` with a filter per output channel
+  (exact float32) and the maximum over channels.
 
 The graphs come back as the JAX package returns them: a dense numpy array,
 or with ``sparse=True`` a ``scipy.sparse.csc_matrix``.
@@ -21,17 +28,22 @@ or with ``sparse=True`` a ``scipy.sparse.csc_matrix``.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import functools
+from typing import Any, Callable, Optional
 
 import numpy as np
 import scipy.sparse
 import torch
+import torch.nn.functional as F
 
-from ._device import get_device
+from ._device import as_tensor, exact_f32, get_device
+from .filters import diagonal_filter
 from .ops import knn as _knn
 from .util.exceptions import ParameterError
+from .util.utils import _host, _periodic_index, fix_frames
 
-__all__ = ["cross_similarity", "recurrence_matrix", "recurrence_to_lag", "lag_to_recurrence"]
+__all__ = ["cross_similarity", "recurrence_matrix", "recurrence_to_lag", "lag_to_recurrence",
+           "timelag_filter", "subsegment", "agglomerative", "path_enhance"]
 
 _BANDWIDTH_MODES = ("med_k_scalar", "mean_k", "gmean_k", "mean_k_avg", "gmean_k_avg",
                     "mean_k_avg_and_pair")
@@ -362,3 +374,138 @@ def lag_to_recurrence(lag: Any, *, axis: int = -1):
     if scipy.sparse.issparse(lag):
         return _shear_sparse(lag, 1, axis).tocsr()[tuple(keep)].asformat(lag.format)
     return _shear_dense_np(lag, 1, axis)[tuple(keep)]
+
+
+def timelag_filter(function: Callable, pad: bool = True, index: int = 0) -> Callable:
+    """``function`` lifted to the time-lag domain.
+
+    The wrapped function shears its ``index``-th argument with
+    :func:`recurrence_to_lag` (``pad`` passed on), applies ``function``
+    there, where repeated structure lies along rows, and shears the result
+    back with :func:`lag_to_recurrence`.
+    """
+
+    @functools.wraps(function)
+    def _wrapped(*args: Any, **kwargs: Any):
+        args = list(args)
+        args[index] = recurrence_to_lag(args[index], pad=pad)
+        return lag_to_recurrence(function(*args, **kwargs))
+
+    return _wrapped
+
+
+def subsegment(data: Any, frames: Any, *, n_segments: int = 4, axis: int = -1) -> np.ndarray:
+    """Each segment between the boundary ``frames`` split by :func:`agglomerative` into at most
+    ``n_segments`` pieces; the boundaries of all pieces, as a numpy int array."""
+    if n_segments < 1:
+        raise ParameterError(f"cannot split a segment into n_segments={n_segments} pieces")
+    data = _host(data)
+    fences = fix_frames(frames, x_min=0, x_max=data.shape[axis], pad=True)
+
+    def _split_one(lo: int, hi: int) -> np.ndarray:
+        window = [slice(None)] * data.ndim
+        window[axis] = slice(lo, hi)
+        return lo + agglomerative(data[tuple(window)], min(hi - lo, n_segments), axis=axis)
+
+    pieces = [_split_one(lo, hi) for lo, hi in zip(fences[:-1], fences[1:])]
+    if not pieces:
+        return np.array([], dtype=int)
+    return np.concatenate(pieces)
+
+
+def agglomerative(data: Any, k: int, *, clusterer: Optional[Any] = None,
+                  axis: int = -1) -> np.ndarray:
+    """The first frame of each of ``k`` segments, by Ward clustering of the frames along
+    ``axis`` under a time-adjacency constraint (or by ``clusterer``), on the host.
+
+    A frame may merge only with its neighbours in time, so every cluster is
+    a run of frames; the boundaries are where the label changes, after a
+    leading 0.
+    """
+    feats = np.swapaxes(np.atleast_2d(_host(data)), axis, 0)
+    n = feats.shape[0]
+    feats = feats.reshape((n, -1), order="F")
+    if clusterer is None:
+        import sklearn.cluster
+
+        chain = scipy.sparse.diags([np.ones(n - 1), np.ones(n), np.ones(n - 1)],
+                                   offsets=(-1, 0, 1), format="coo")
+        clusterer = sklearn.cluster.AgglomerativeClustering(n_clusters=int(k),
+                                                            connectivity=chain)
+    clusterer.fit(feats)
+    flips = np.flatnonzero(np.diff(clusterer.labels_)) + 1
+    return np.concatenate(([0], flips.astype(int)))
+
+
+def path_enhance(R: Any, n: int, *, window: Any = "hann", max_ratio: float = 2.0,
+                 min_ratio: Optional[float] = None, n_filters: int = 7, zero_mean: bool = False,
+                 clip: bool = True, **kwargs: Any) -> torch.Tensor:
+    """``R`` smoothed along paths of ``n_filters`` slopes from ``min_ratio`` (default
+    ``1 / max_ratio``) to ``max_ratio``: the elementwise maximum of its convolutions with
+    :func:`~librosa_tpu_torch.filters.diagonal_filter` of length ``n`` at each slope,
+    clipped at 0 with ``clip``.
+
+    As ``scipy.ndimage.convolve(mode='reflect')`` (the edge sample
+    repeated), on the last two axes of ``R`` in float32, leading axes
+    kept; ``kwargs`` are accepted for the signature's sake and unused, as
+    in the JAX package.
+    """
+    if min_ratio is None:
+        min_ratio = 1.0 / max_ratio
+    elif min_ratio > max_ratio:
+        raise ParameterError(f"min_ratio={min_ratio} cannot exceed max_ratio={max_ratio}")
+    R = as_tensor(R).to(torch.float32)
+    ratios = np.logspace(np.log2(min_ratio), np.log2(max_ratio), num=n_filters, base=2)
+    # flipped, so that conv2d's cross-correlation is the true convolution
+    kernels = [torch.from_numpy(np.ascontiguousarray(
+        diagonal_filter(window, n, slope=ratio, zero_mean=zero_mean)[::-1, ::-1]
+        .astype(np.float32))).to(R.device) for ratio in ratios]
+    return _path_enhance_core(R, kernels, clip=bool(clip))
+
+
+def _shared_pads(kernels: list) -> tuple:
+    """``(top, bottom, left, right)``: the largest of the kernels' symmetric pads
+    ``((k - 1) // 2, k // 2)`` on each axis."""
+    return (max((k.shape[0] - 1) // 2 for k in kernels), max(k.shape[0] // 2 for k in kernels),
+            max((k.shape[1] - 1) // 2 for k in kernels), max(k.shape[1] // 2 for k in kernels))
+
+
+def _shared_pad(R: torch.Tensor, pads: tuple) -> torch.Tensor:
+    """``R`` as ``(N, 1, h, w)``, padded symmetrically (the edge repeated) by ``pads``."""
+    top, bottom, left, right = pads
+    h, w = R.shape[-2:]
+    return (R.reshape(-1, 1, h, w)
+            .index_select(-2, _periodic_index(h, top, bottom, "symmetric", R.device))
+            .index_select(-1, _periodic_index(w, left, right, "symmetric", R.device)))
+
+
+def _kernel_frame(kernels: list, pads: tuple) -> torch.Tensor:
+    """The kernels zero-embedded in one ``(len, 1, top + bottom + 1, left + right + 1)``
+    frame, each where its own pad within ``pads`` puts it."""
+    top, bottom, left, right = pads
+    frame = kernels[0].new_zeros((len(kernels), 1, top + bottom + 1, left + right + 1))
+    for i, k in enumerate(kernels):
+        r0, c0 = top - (k.shape[0] - 1) // 2, left - (k.shape[1] - 1) // 2
+        frame[i, 0, r0:r0 + k.shape[0], c0:c0 + k.shape[1]] = k
+    return frame
+
+
+def _path_enhance_core(R: torch.Tensor, kernels: list, *, clip: bool) -> torch.Tensor:
+    """The maximum over ``kernels`` of ``R``'s cross-correlations, each over its own
+    symmetric pad ``((k - 1) // 2, k // 2)`` a side, ``R`` finite.
+
+    ``R`` is padded once by the largest pad of each axis (a symmetric pad
+    by ``p`` lies inside the one by any wider pad), and the kernels are
+    set in one frame of the largest extent, each where its own pad puts
+    it: one ``conv2d`` then computes every filter as an output channel.
+    The zeros around a smaller kernel add exact zeros, so each channel
+    equals that kernel's own convolution bit for bit; one call with seven
+    channels took 139.6 ms where seven single-channel calls took 1048.3 ms
+    on ``(2, 8193, 8193)`` (``diagnostics/path_enhance_routes.py``, NVIDIA
+    H100 80GB HBM3, 700.00 W).
+    """
+    pads = _shared_pads(kernels)
+    with exact_f32():
+        out = F.conv2d(_shared_pad(R, pads), _kernel_frame(kernels, pads)).amax(dim=1)
+    out = out.reshape(R.shape)
+    return out.clamp_min(0) if clip else out

@@ -7,4 +7,4 @@ from ._nnls import nnls  # noqa: F401
 from .exceptions import LibrosaError, ParameterError  # noqa: F401
 from .files import cite, ex, example, example_info, find_files, list_examples  # noqa: F401
 from .deprecation import Deprecated, rename_kw  # noqa: F401
-from . import decorators, deprecation, exceptions, files, matching  # noqa: F401
+from . import decorators, deprecation, exceptions, files, matching, profiling  # noqa: F401

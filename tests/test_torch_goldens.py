@@ -39,7 +39,7 @@ PORTED = ["filters_mel", "melspectrogram", "mfcc", "mfcc_configs", "filters_chro
           "remix_effect", "preemphasis", "trim_split", "nn_filter", "spectral_descriptors",
           "tonnetz", "feature_manip", "delta_configs", "mfcc_to_mel", "util_core", "util_more",
           "fused_branch_configs", "pcen", "pcen_maxfilter", "reassigned", "iirt", "iirt_ba",
-          "fmt"]
+          "fmt", "path_enhance", "segment_cluster"]
 
 
 def _to_host(x):

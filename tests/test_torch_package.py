@@ -43,6 +43,63 @@ def test_the_alignment_and_effects_modules_pull_in_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_the_structure_and_infrastructure_modules_pull_in_no_jax():
+    code = (
+        "import sys\n"
+        "import librosa_tpu_torch as L, librosa_tpu_torch._cache, librosa_tpu_torch.display\n"
+        "import librosa_tpu_torch.util.profiling, librosa_tpu_torch.ops.ctfft\n"
+        "import librosa_tpu_torch.ops.fft, librosa_tpu_torch.ops.transforms\n"
+        "assert L.display is librosa_tpu_torch.display and callable(L.segment.path_enhance)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'librosa_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_import_and_mfcc_need_no_matplotlib_sklearn_or_joblib():
+    """With the three blocked, the package imports, imports none of them, and computes an mfcc."""
+    code = (
+        "import sys\n"
+        "for name in ('matplotlib', 'sklearn', 'joblib'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, librosa_tpu_torch as L\n"
+        "L.set_device('cpu')\n"
+        "M = L.feature.mfcc(y=np.random.RandomState(0).randn(4096).astype(np.float32), sr=22050)\n"
+        "assert tuple(M.shape) == (20, 9), M.shape\n"
+        "assert L.filters.mel(sr=22050, n_fft=512).shape == (128, 257)\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                ('matplotlib', 'sklearn', 'joblib') and sys.modules[m] is not None)\n"
+        "assert not loaded, loaded\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_path_enhance_ctfft_and_calibrate_try_the_card_by_default(monkeypatch):
+    """Without set_device('cpu') each puts its array on cuda and fails here."""
+    from librosa_tpu_torch.ops import ctfft
+    from librosa_tpu_torch.util import profiling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = L.get_device()
+    L.set_device("cuda")
+    R = np.random.RandomState(0).rand(20, 20)
+    x = np.ones(1000, dtype=np.complex64)
+    try:
+        for call in (lambda: L.segment.path_enhance(R, 5), lambda: ctfft.fft_arbitrary(x, 1000),
+                     lambda: profiling.calibrate(size=16, chain=1)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+        # a CPU tensor keeps its device
+        assert L.segment.path_enhance(torch.from_numpy(R), 5).device.type == "cpu"
+        assert ctfft.fft_arbitrary(torch.from_numpy(x), 1000).device.type == "cpu"
+    finally:
+        L.set_device(prev)
+
+
 def test_alignment_and_effects_try_the_card_by_default(monkeypatch):
     """Without set_device('cpu') the search, the phase vocoder and the stretch go to cuda and fail here."""
     from librosa_tpu_torch.ops import knn
@@ -113,7 +170,9 @@ def test_no_source_imports_jax_or_the_jax_package():
             "librosa_tpu_torch/segment.py", "librosa_tpu_torch/ops/knn.py",
             "librosa_tpu_torch/util/_nnls.py", "librosa_tpu_torch/feature/utils.py",
             "librosa_tpu_torch/feature/inverse.py", "librosa_tpu_torch/ops/spline.py",
-            "librosa_tpu_torch/core/spectrum_ext.py"} <= names
+            "librosa_tpu_torch/core/spectrum_ext.py", "librosa_tpu_torch/_cache.py",
+            "librosa_tpu_torch/display.py", "librosa_tpu_torch/util/profiling.py",
+            "librosa_tpu_torch/ops/ctfft.py", "librosa_tpu_torch/ops/fft.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -26,7 +26,7 @@ STUBS = {
 }
 PORT_OWN = {"librosa_tpu/__init__.pyi": {"get_device", "set_device"}}
 NOT_PORTED = {
-    "librosa_tpu/__init__.pyi": {"cache", "display", "parallel"},
+    "librosa_tpu/__init__.pyi": {"parallel"},
     "librosa_tpu/core/__init__.pyi": set(),
     "librosa_tpu/feature/__init__.pyi": set(),
     "librosa_tpu/util/__init__.pyi": set(),
@@ -92,3 +92,14 @@ def test_this_slice_is_off_the_list():
     assert L.iirt is L.core.spectrum_ext.iirt and L.fmt is L.core.spectrum_ext.fmt
     assert L.feature.mel_to_stft is L.feature.inverse.mel_to_stft
     assert L.util.nnls is L.util._nnls.nnls and L.util.stack is L.util.utils.stack
+
+
+def test_the_structure_and_infrastructure_slice_is_off_the_list():
+    assert NOT_PORTED["librosa_tpu/__init__.pyi"] == {"parallel"}
+    assert L.cache is L._cache.cache and "display" in dir(L)
+    assert L.display.specshow is L.display.__dict__["specshow"]
+    for name in ("timelag_filter", "subsegment", "agglomerative", "path_enhance"):
+        assert callable(getattr(L.segment, name))
+    for name in ("trace", "annotate", "dispatch_profile", "calibrate", "roofline",
+                 "DeviceCeilings", "RooflineReport"):
+        assert callable(getattr(L.util.profiling, name))
