@@ -153,6 +153,20 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    wrappers' counters and the device's busy share, and ``roofline`` of
    ``path_enhance``; times, path_enhance's peak memory and the bound of its
    dense work;
+4o. the sharded layer (``librosa_tpu_torch.parallel``) on an 8-position time
+   mesh laid on the one card and on ``time_mesh()`` (one position): every
+   sharded chain (stft constant and reflect, melspectrogram, mfcc,
+   onset_strength, tempo, pcen, cqt at config 4's call, chroma_cqt, hpss,
+   pyin, beat_track) on the main buffer or config 5's signal against the
+   unsharded port (the STFTs bit for bit, the rest at
+   ``tests/test_parallel.py``'s tolerances), each chain's kernel launches
+   against the design (the mel kernel once a position and once for the
+   trailing frame, the median kernel twice a position, the dB, beat DP and
+   Viterbi kernels once), the sharded envelope against float64; times by
+   CUDA events and peak memory at 8 and 1 positions beside the unsharded
+   call, ``scaling_report`` over 1-8 positions of the card (the cost of
+   sharding on one card, not scaling), ``dispatch_profile`` of two chains,
+   and ``entry.dryrun_multichip(8)`` against float64 autograd;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024, and a strided row
@@ -2170,10 +2184,17 @@ def config5_phase(torch, L, device) -> dict:
                   hop_length=512, center=True, pad_mode="constant")
     yin_ms = time_ms(torch, lambda: pitch._yin_frames(y, **yin_kw), 3)
     thresholds, beta_probs, _, _ = pitch._pyin_tables(*key)
-    obs_kw = dict(yin_kw, thresholds=thresholds, beta_probs=beta_probs, n_pitch_bins=435,
+    obs_kw = dict(sr=SR, fmin=PYIN5["fmin"], fmax=PYIN5["fmax"], frame_length=2048,
+                  thresholds=thresholds, beta_probs=beta_probs, n_pitch_bins=435,
                   n_bins_per_semitone=10, boltzmann_parameter=2.0, no_trough_prob=0.01)
-    observe_ms = time_ms(torch, lambda: pitch._pyin_observe(y, **obs_kw), 2)
-    obs_full, _ = pitch._pyin_observe(y, **obs_kw)
+
+    def observe():  # pad, frame and the frame-wise half, as pyin runs them
+        frames = L.util.frame(torch.nn.functional.pad(y, (1024, 1024)), frame_length=2048,
+                              hop_length=512)
+        return pitch._pyin_observe(frames, **obs_kw)
+
+    observe_ms = time_ms(torch, observe, 2)
+    obs_full, _ = observe()
     lp = pitch._pyin_log_prob(obs_full).transpose(-2, -1).contiguous()
     del obs_full
     table = viterbi.run_table(log_trans).on(device)  # as sequence._decode caches it for pyin
@@ -3510,6 +3531,294 @@ def segment_infrastructure_phase(torch, L, device, y) -> dict:
             "ceilings": {k: getattr(ceilings, k) for k in DATASHEET}}
 
 
+# ---------------------------------------------------------------------------
+# 4o: the sharded layer (parallel/) on eight positions of one card, and dryrun_multichip
+# ---------------------------------------------------------------------------
+
+SHARD_POSITIONS = 8           # an 8-way time mesh laid on cuda:0 (the machine has one card)
+MEL_SHARDED_RTOL = 1e-6       # tests/test_parallel.py:51, where the sharded mel is not bit-equal
+MIN_MFCC_SHARDED_SNR_DB = 120.0   # tests/test_parallel.py:245
+ENV_SHARDED_ATOL = 2e-5       # tests/test_parallel.py:83
+PCEN_SHARDED_TOL = 1e-4       # tests/test_parallel.py:106 (atol and rtol)
+CQT_SHARDED_REL = 1e-5        # tests/test_parallel.py:124, max error over the peak
+MIN_CHROMA_SHARDED_SNR_DB = 120.0  # tests/test_parallel.py:284
+MIN_HPSS_SHARDED_SNR_DB = 120.0    # tests/test_parallel.py:222
+F0_SHARDED_RTOL = 1e-5        # tests/test_parallel.py:180
+VPROB_SHARDED_ATOL = 1e-6     # tests/test_parallel.py:181
+TEMPO_SHARDED_RTOL = 1e-6     # tests/test_parallel.py:199
+DRYRUN_GRAD_RTOL = 1e-5       # the first step's gradient against float64 autograd
+SCALING_SECONDS = 10.0        # audio a position in scaling_report's runs
+SHARDED_KERNELS = ("stft_mel", "db_scale", "ola_norm", "median_filter", "beat_dp", "viterbi")
+
+
+def sharded_launches(name: str, d: int) -> dict:
+    """Launches of each hand kernel in one call of the sharded chain ``name`` on ``d`` positions,
+    by the design: the mel kernel once a position and once for the trailing frame, the median
+    kernel twice a position, the dB, beat DP and Viterbi kernels once on the joined result."""
+    k1 = {"stft_mel": d + 1}
+    want = {"stft": {}, "stft_reflect": {}, "melspectrogram": k1,
+            "mfcc": {**k1, "db_scale": 1}, "onset_strength": k1, "tempo": k1, "pcen": {},
+            "cqt": {}, "chroma_cqt": {}, "hpss": {"median_filter": 2 * d},
+            "pyin": {"viterbi": 1}, "beat_track": {**k1, "beat_dp": 1}}[name]
+    return {k: want.get(k, 0) for k in SHARDED_KERNELS}
+
+
+def dryrun_loss64(torch, L, *, dp, sp, n_fft=512, hop=128, n_mels=16, n_out=4):
+    """``dryrun_multichip``'s first loss and gradients, unsharded, by float64 autograd on the
+    host: the same seeded draws, centred frames (the ``n // hop`` the positions own),
+    ``|rfft|**2``, the filterbank, ``log1p``, the time mean, the head, the mean squared error."""
+    rng = np.random.RandomState(0)
+    n = sp * hop * 16
+    y = torch.from_numpy(rng.randn(2 * dp, n).astype(np.float32).astype(np.float64))
+    fb = torch.from_numpy(L.filters.mel(sr=SR, n_fft=n_fft, n_mels=n_mels).astype(np.float32)
+                          .astype(np.float64)).requires_grad_()
+    head = torch.from_numpy((rng.randn(n_mels, n_out) * 0.1).astype(np.float32)
+                            .astype(np.float64)).requires_grad_()
+    target = torch.from_numpy(rng.randn(2 * dp, n_out).astype(np.float32).astype(np.float64))
+    frames = torch.nn.functional.pad(y, (n_fft // 2, n_fft // 2)).unfold(-1, n_fft, hop)
+    window = torch.from_numpy(L.filters.get_window("hann", n_fft).astype(np.float64))
+    power = torch.fft.rfft(frames[..., :n // hop, :] * window, dim=-1).abs().square()
+    feats = torch.log1p(torch.matmul(power, fb.T).clamp_min(0.0))
+    loss = (torch.matmul(feats.mean(dim=1), head) - target).square().mean()
+    loss.backward()
+    return float(loss.detach()), fb.grad.numpy(), head.grad.numpy()
+
+
+def sharded_phase(torch, L, device, y) -> dict:
+    """Phase 4o: every sharded chain of ``parallel/`` at full width on an 8-position time mesh
+    of one card and on ``time_mesh()`` (one position), each against the unsharded port with its
+    launches counted, the float64 onset floor, the times beside the unsharded calls with peak
+    memory, ``scaling_report`` over positions of the card, ``dispatch_profile`` of two chains
+    and ``dryrun_multichip(8)`` against float64 autograd."""
+    from librosa_tpu_torch import parallel as P
+    from librosa_tpu_torch.entry import dryrun_multichip
+    from librosa_tpu_torch.ops import beat_dp, db_scale, fused_stft, median, ola_norm, viterbi
+    from librosa_tpu_torch.parallel import scaling
+    from librosa_tpu_torch.util import profiling
+
+    counters = dict(zip(SHARDED_KERNELS, (fused_stft, db_scale, ola_norm, median, beat_dp,
+                                          viterbi)))
+
+    def counted(fn):
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: mod.launches for k, mod in counters.items()}
+
+    meshes = {SHARD_POSITIONS: P.make_mesh((SHARD_POSITIONS,), ("time",),
+                                           devices=[device] * SHARD_POSITIONS),
+              1: P.time_mesh()}
+    print(f"sharded layer: meshes {meshes[SHARD_POSITIONS]} and time_mesh() {meshes[1]}; "
+          "positions share the card, so these runs show what sharding costs on one card and "
+          "not how a chain scales across cards")
+    y5 = config5_signal(torch, MAIN_SHAPE, 5, device)
+    mel_kw = dict(sr=SR, **MAIN)
+    M = L.feature.melspectrogram(y=y, **mel_kw)[..., :-1].contiguous()   # 8192 frames: 8 x 1024
+    chains = {
+        "stft": (lambda m: P.stft_sharded(y, mesh=m), lambda: L.stft(y, n_fft=2048,
+                                                                     hop_length=512)),
+        "stft_reflect": (lambda m: P.stft_sharded(y, mesh=m, pad_mode="reflect"),
+                         lambda: L.stft(y, n_fft=2048, hop_length=512, pad_mode="reflect")),
+        "melspectrogram": (lambda m: P.melspectrogram_sharded(y, mesh=m, **mel_kw),
+                           lambda: L.feature.melspectrogram(y=y, **mel_kw)),
+        "mfcc": (lambda m: P.mfcc_sharded(y, mesh=m, sr=SR),
+                 lambda: L.feature.mfcc(y=y, sr=SR)),
+        "onset_strength": (lambda m: P.onset_strength_sharded(y5, mesh=m, sr=SR),
+                           lambda: L.onset.onset_strength(y=y5, sr=SR)),
+        "tempo": (lambda m: P.tempo_sharded(y5, mesh=m, sr=SR),
+                  lambda: L.feature.tempo(onset_envelope=L.onset.onset_strength(y=y5, sr=SR),
+                                          sr=SR)),
+        "pcen": (lambda m: P.pcen_sharded(M, mesh=m, sr=SR), lambda: L.pcen(M, sr=SR)),
+        "cqt": (lambda m: P.cqt_sharded(y, mesh=m, sr=SR, hop_length=512, n_bins=84,
+                                        bins_per_octave=12),
+                lambda: L.cqt(y, sr=SR, hop_length=512, n_bins=84, bins_per_octave=12,
+                              res_type="polyphase")),
+        "chroma_cqt": (lambda m: P.chroma_cqt_sharded(y, mesh=m, sr=SR),
+                       lambda: L.feature.chroma_cqt(C=L.cqt(
+                           y, sr=SR, hop_length=512, fmin=L.note_to_hz("C1"), n_bins=7 * 36,
+                           bins_per_octave=36, res_type="polyphase").abs(), sr=SR)),
+        "hpss": (lambda m: P.hpss_sharded(y, mesh=m), lambda: L.effects.hpss(y)),
+        "pyin": (lambda m: P.pyin_sharded(y5, mesh=m, sr=SR, **PYIN5),
+                 lambda: L.pyin(y5, sr=SR, **PYIN5)),
+        "beat_track": (lambda m: P.beat_track_sharded(y5, mesh=m, sr=SR, sparse=False),
+                       lambda: L.beat.beat_track(y=y5, sr=SR, sparse=False)),
+    }
+
+    def agree(name, got, want) -> dict:
+        """The table of ``tests/test_parallel.py``'s holds, per chain: what was measured."""
+        if name in ("stft", "stft_reflect"):
+            return {"bit_equal": bool(torch.equal(got, want))}
+        if name in ("melspectrogram", "mfcc"):
+            r = {"bit_equal": bool(torch.equal(got, want)),
+                 "max_rel": float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())}
+            if name == "mfcc":
+                r["snr_db"] = snr_t(torch, got, want)
+            return r
+        if name == "onset_strength":
+            return {"max_abs": float((got - want).abs().max())}
+        if name in ("tempo", "beat_track"):
+            t_got, t_want = (np.asarray(x[0] if name == "beat_track" else x, dtype=float)
+                             for x in (got, want))
+            r = {"tempo_max_rel": float(np.max(np.abs(t_got - t_want) / t_want))}
+            if name == "beat_track":
+                r["beats_equal"] = bool(np.array_equal(got[1], want[1]))
+            return r
+        if name == "pcen":
+            return {"max_excess": float(((got - want).abs()
+                                         - PCEN_SHARDED_TOL * (1 + want.abs())).max())}
+        if name == "cqt":
+            return {"max_rel": float((got - want).abs().max() / want.abs().max())}
+        if name == "chroma_cqt":
+            return {"snr_db": snr_t(torch, got, want)}
+        if name == "hpss":
+            return {"snr_db": min(snr_t(torch, g, w) for g, w in zip(got, want))}
+        f0, vf, vp = got
+        f0_w, vf_w, vp_w = want
+        both = torch.isfinite(f0) & torch.isfinite(f0_w)
+        return {"voicing_equal": bool(torch.equal(vf, vf_w)),
+                "f0_max_rel": float(((f0 - f0_w).abs() / f0_w.abs())[both].max()),
+                "vprob_max_abs": float((vp - vp_w).abs().max())}
+
+    def held(name, r) -> bool:
+        if name in ("stft", "stft_reflect"):
+            return r["bit_equal"]
+        if name == "melspectrogram":
+            return r["bit_equal"] or r["max_rel"] <= MEL_SHARDED_RTOL
+        if name == "mfcc":
+            return r["bit_equal"] or r["snr_db"] >= MIN_MFCC_SHARDED_SNR_DB
+        if name == "onset_strength":
+            return r["max_abs"] <= ENV_SHARDED_ATOL
+        if name == "tempo":
+            return r["tempo_max_rel"] <= TEMPO_SHARDED_RTOL
+        if name == "beat_track":
+            return r["tempo_max_rel"] <= TEMPO_SHARDED_RTOL and r["beats_equal"]
+        if name == "pcen":
+            return r["max_excess"] <= 0
+        if name == "cqt":
+            return r["max_rel"] < CQT_SHARDED_REL
+        if name == "chroma_cqt":
+            return r["snr_db"] >= MIN_CHROMA_SHARDED_SNR_DB
+        if name == "hpss":
+            return r["snr_db"] >= MIN_HPSS_SHARDED_SNR_DB
+        return (r["voicing_equal"] and r["f0_max_rel"] <= F0_SHARDED_RTOL
+                and r["vprob_max_abs"] <= VPROB_SHARDED_ATOL)
+
+    def peak_bytes(fn) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_bytes = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - held_bytes
+
+    launches = {k: 0 for k in SHARDED_KERNELS}
+    results, failed, env8 = {}, [], None
+    for name, (sharded, unsharded) in chains.items():
+        want, unsharded_counts = counted(unsharded)
+        entry = {"unsharded_launches": unsharded_counts}
+        for d, mesh in meshes.items():
+            got, counts = counted(lambda: sharded(mesh))
+            for k, c in counts.items():
+                launches[k] += c
+            r = agree(name, got, want)
+            ok = held(name, r) and counts == sharded_launches(name, d)
+            entry[f"D{d}"] = {"launches": counts, "agreement": r, "held": ok}
+            if not ok:
+                failed.append(f"{name} D={d}: {r}, launches {counts} (design "
+                              f"{sharded_launches(name, d)})")
+            if name == "onset_strength" and d == SHARD_POSITIONS:
+                env8 = got
+            del got
+        del want
+        results[name] = entry
+        print(f"sharded {name}: D={SHARD_POSITIONS} {entry[f'D{SHARD_POSITIONS}']}; D=1 "
+              f"{entry['D1']}; unsharded launches {unsharded_counts}")
+
+    # the sharded envelope of track 0 against the port's float64 run on the host
+    env64 = L.onset.onset_strength(y=y5[0].cpu().double(), sr=SR)
+    env_snr = snr_db(env8[0].cpu().numpy(), env64.numpy())
+    print(f"sharded onset_strength track 0 vs the float64 CPU run: {env_snr:.1f} dB (floor "
+          f"{MIN_ENV_SNR_DB})")
+    if not env_snr >= MIN_ENV_SNR_DB:
+        failed.append(f"onset_strength track 0 vs float64: {env_snr:.1f} dB")
+    del env8
+    if failed:
+        raise AssertionError("phase 4o: " + "; ".join(failed))
+
+    # times (CUDA events) and peak memory: each chain at D=8, D=1 and unsharded
+    times = {}
+    for name, (sharded, unsharded) in chains.items():
+        heavy = name in ("pyin", "chroma_cqt")
+        reps = 1 if heavy else 3
+        row = {}
+        for label, fn in ((f"D{SHARD_POSITIONS}", lambda: sharded(meshes[SHARD_POSITIONS])),
+                          ("D1", lambda: sharded(meshes[1])), ("unsharded", unsharded)):
+            row[label] = {"ms": time_ms(torch, fn, reps, groups=2), "peak_bytes": peak_bytes(fn)}
+        times[name] = row
+    print("sharded chains (ms by CUDA events, best of 2 groups; peak bytes above what was held):")
+    for name, row in times.items():
+        print(f"  {name}: " + ", ".join(f"{k} {v['ms']:.4f} ms peak {v['peak_bytes']}"
+                                        for k, v in row.items()))
+
+    # positions of one card: the cost of sharding there, not scaling
+    points = scaling.scaling_report_all(device_counts=[1, 2, 4, SHARD_POSITIONS],
+                                        seconds_per_device=SCALING_SECONDS, iters=2,
+                                        devices=[device] * SHARD_POSITIONS)
+    print(f"scaling_report over 1-{SHARD_POSITIONS} positions of ONE card "
+          f"({SCALING_SECONDS} s a position; the cost of sharding on one card, not scaling):")
+    for p in points:
+        print(f"  {p.chain:>15s} {p.n_devices} positions: {p.seconds * 1e3:.4f} ms, "
+              f"{p.samples_per_s:.6e} samples/s, efficiency {p.efficiency:.4f}")
+
+    # what the profiler sees in two chains at D=8
+    profiles = {}
+    for label, fn, symbol, kernel in (
+            ("melspectrogram_sharded", lambda: P.melspectrogram_sharded(
+                y, mesh=meshes[SHARD_POSITIONS], **mel_kw), "stft_mel_kernel", "stft_mel"),
+            ("hpss_sharded", lambda: P.hpss_sharded(y, mesh=meshes[SHARD_POSITIONS]),
+             "median_kernel", "median_filter")):
+        fn()
+        torch.cuda.synchronize()
+        counters[kernel].launches = 0
+        prof = profiling.dispatch_profile(fn, warmup=0)
+        seen = sum(c for k, c in prof["by_function"].items() if symbol in k)
+        busy = prof["device_s"] / prof["wall_s"]
+        print(f"dispatch_profile {label} at D={SHARD_POSITIONS}: runtime launches "
+              f"{prof['launches']}, transfers {prof['transfers']}, eager ops {prof['eager']}, "
+              f"{symbol} seen {seen} / counted {counters[kernel].launches}; device busy "
+              f"{prof['device_s'] * 1e3:.4f} ms of {prof['wall_s'] * 1e3:.4f} ms wall, share "
+              f"{busy:.4f}")
+        if seen != counters[kernel].launches or seen < 1:
+            raise AssertionError(f"{label}: the profiler saw {seen} {symbol}, the wrapper "
+                                 f"counted {counters[kernel].launches}")
+        profiles[label] = {"launches": prof["launches"], "transfers": prof["transfers"],
+                           "eager": prof["eager"], "kernel_seen": seen, "busy_share": busy,
+                           "device_ms": prof["device_s"] * 1e3, "wall_ms": prof["wall_s"] * 1e3}
+
+    # the dry run: one training step and the chains on the eight positions of the card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(SHARD_POSITIONS, devices=[device] * SHARD_POSITIONS)
+    dry_s = time.perf_counter() - t0
+    l64, g_fb, g_head = dryrun_loss64(torch, L, dp=dry["mesh"][0], sp=dry["mesh"][1])
+    grad_err = {name: float(np.max(np.abs(dry["grads"][name] - g)
+                                   / (np.abs(g) + np.abs(g).max())))
+                for name, g in (("fb", g_fb), ("head", g_head))}
+    loss_rel = abs(dry["losses"][0] - l64) / l64
+    print(f"dryrun_multichip({SHARD_POSITIONS}) on {device} x {SHARD_POSITIONS}: mesh "
+          f"{dry['mesh']}, losses {dry['losses']}, first loss vs float64 {loss_rel:.3e}, "
+          f"gradient vs float64 autograd (|err| / (|g| + max |g|)) {grad_err}, "
+          f"{dry_s:.3f} s host clock")
+    if not (dry["losses"][1] <= dry["losses"][0] and loss_rel <= DRYRUN_GRAD_RTOL
+            and max(grad_err.values()) <= DRYRUN_GRAD_RTOL):
+        raise AssertionError(f"dryrun_multichip: losses {dry['losses']}, {loss_rel}, {grad_err}")
+    del y5, M
+    return {"launches": launches, "chains": results, "times": times, "env_snr_db": env_snr,
+            "scaling": [vars(p) for p in points], "profiles": profiles,
+            "dryrun": {"losses": dry["losses"], "loss_rel": loss_rel, "grad_err": grad_err,
+                       "host_s": dry_s}}
+
+
 def main() -> int:
     import torch
 
@@ -3700,6 +4009,7 @@ def main() -> int:
     features = features_inversion_phase(torch, L, device, y, win)
     pcen_ext = pcen_spectrum_ext_phase(torch, L, device, y, win)
     seg_infra = segment_infrastructure_phase(torch, L, device, y)
+    sharded = sharded_phase(torch, L, device, y)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
@@ -3755,7 +4065,7 @@ def main() -> int:
                           (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi")):
         for path, phase in (("alignment_structure", structure), ("effects", effects),
                             ("features_inversion", features), ("pcen_spectrum_ext", pcen_ext),
-                            ("segment_infrastructure", seg_infra)):
+                            ("segment_infrastructure", seg_infra), ("sharded", sharded)):
             entry["launches"] += phase["launches"].get(kernel, 0)
             entry["launches_by_path"][path] = phase["launches"].get(kernel, 0)
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,

@@ -15,7 +15,8 @@ The PyTorch port of ``librosa_tpu``, with the same librosa-style namespace
 ``filters.chroma``, ``filters.get_window``, ``filters.window_sumsquare``;
 ``util.normalize``, ``util.nnls`` and friends; ``util.profiling``; the
 on-disk ``cache``; ``display``, loaded at its first use so that importing
-the package does not import matplotlib)
+the package does not import matplotlib; ``parallel``, the sharded chains
+over a device mesh, also loaded at its first use)
 and the same array layout: time on the last axis, bins on axis -2, any
 leading dims.
 
@@ -52,13 +53,16 @@ from . import (beat, core, decompose, effects, feature, filters, io, onset, ops,
                segment, sequence, util)
 
 
+_LAZY = ("display", "parallel")
+
+
 def __getattr__(name: str):
-    if name == "display":
+    if name in _LAZY:
         import importlib
 
-        return importlib.import_module(".display", __name__)
+        return importlib.import_module("." + name, __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__():
-    return sorted(set(globals()) | {"display"})
+    return sorted(set(globals()) | set(_LAZY))

@@ -270,7 +270,14 @@ def _yin_frames(y: Any, *, sr: float, fmin: float, fmax: float, frame_length: in
     y = as_tensor(y)
     if center:
         y = pad_last(y, frame_length // 2, frame_length // 2, mode=pad_mode)
-    y_frames = frame(y, frame_length=frame_length, hop_length=hop_length)
+    return _yin_of_frames(frame(y, frame_length=frame_length, hop_length=hop_length), sr=sr,
+                          fmin=fmin, fmax=fmax, frame_length=frame_length)
+
+
+def _yin_of_frames(y_frames: torch.Tensor, *, sr: float, fmin: float, fmax: float,
+                   frame_length: int):
+    """Frames ``(..., frame_length, T)`` -> (difference function, parabolic shifts, troughs,
+    min_period)."""
     min_period = int(np.floor(sr / fmax))
     max_period = min(int(np.ceil(sr / fmin)), frame_length - 1)
     yin_frames = _cumulative_mean_normalized_difference(y_frames, min_period, max_period)
@@ -384,57 +391,94 @@ def pyin(y: Any, *, fmin: float, fmax: float, sr: float = 22050, frame_length: i
     hop_length = frame_length // 4 if hop_length is None else hop_length
     y = as_tensor(y)
     dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
-    key = (float(sr), float(fmin), float(fmax), int(hop_length), int(n_thresholds),
-           (float(beta_parameters[0]), float(beta_parameters[1])), float(resolution),
-           float(max_transition_rate), float(switch_prob),
-           None if transition_min_prob is None else float(transition_min_prob))
-    thresholds, beta_probs, log_trans, log_p_init = _pyin_tables(*key)
-    n_bins_per_semitone = int(np.ceil(1.0 / resolution))
-    n_pitch_bins = log_p_init.shape[0] // 2
-    obs_full, voiced_prob = _pyin_observe(
-        y.to(dtype), sr=sr, fmin=fmin, fmax=fmax, frame_length=frame_length,
-        hop_length=hop_length, center=center, pad_mode=pad_mode, thresholds=thresholds,
-        beta_probs=beta_probs, n_pitch_bins=n_pitch_bins,
-        n_bins_per_semitone=n_bins_per_semitone, boltzmann_parameter=float(boltzmann_parameter),
-        no_trough_prob=float(no_trough_prob))
-
-    from ..sequence import _decode
-
-    lpi = device_table(("pyin_log_p_init", key), lambda: log_p_init, y.device, dtype)
-    states, _ = _decode(_pyin_log_prob(obs_full), log_trans, lpi, ("pyin_log_trans", key))
-    freqs = fmin * 2.0 ** (torch.arange(n_pitch_bins, dtype=dtype, device=y.device)
-                           / (12 * n_bins_per_semitone))
-    states = states.long()
-    f0 = freqs[states % n_pitch_bins]
-    voiced_flag = states < n_pitch_bins
-    if fill_na is not None:
-        f0 = torch.where(voiced_flag, f0, float(fill_na))
+    model = _PyinModel(sr=sr, fmin=fmin, fmax=fmax, hop_length=hop_length,
+                       n_thresholds=n_thresholds, beta_parameters=beta_parameters,
+                       resolution=resolution, max_transition_rate=max_transition_rate,
+                       switch_prob=switch_prob, transition_min_prob=transition_min_prob,
+                       boltzmann_parameter=boltzmann_parameter, no_trough_prob=no_trough_prob)
+    y = y.to(dtype)
+    if center:
+        y = pad_last(y, frame_length // 2, frame_length // 2, mode=pad_mode)
+    obs_full, voiced_prob = model.observe(frame(y, frame_length=frame_length,
+                                                hop_length=hop_length), frame_length)
+    f0, voiced_flag = model.decode(obs_full, fill_na)
     return f0, voiced_flag, voiced_prob
 
 
-def _pyin_observe(y: torch.Tensor, *, sr: float, fmin: float, fmax: float, frame_length: int,
-                  hop_length: int, center: bool, pad_mode: str, thresholds: np.ndarray,
-                  beta_probs: np.ndarray, n_pitch_bins: int, n_bins_per_semitone: int,
-                  boltzmann_parameter: float,
+class _PyinModel:
+    """pYIN's settings and host tables, split into its frame-wise half (:meth:`observe`, any
+    block of frames) and its sequential half (:meth:`decode`, all frames at once)."""
+
+    def __init__(self, *, sr: float, fmin: float, fmax: float, hop_length: int,
+                 n_thresholds: int, beta_parameters: Tuple[float, float], resolution: float,
+                 max_transition_rate: float, switch_prob: float,
+                 transition_min_prob: Optional[float], boltzmann_parameter: float,
+                 no_trough_prob: float):
+        self.key = (float(sr), float(fmin), float(fmax), int(hop_length), int(n_thresholds),
+                    (float(beta_parameters[0]), float(beta_parameters[1])), float(resolution),
+                    float(max_transition_rate), float(switch_prob),
+                    None if transition_min_prob is None else float(transition_min_prob))
+        self.thresholds, self.beta_probs, self.log_trans, self.log_p_init = _pyin_tables(
+            *self.key)
+        self.sr, self.fmin, self.fmax = sr, fmin, fmax
+        self.n_bins_per_semitone = int(np.ceil(1.0 / resolution))
+        self.n_pitch_bins = self.log_p_init.shape[0] // 2
+        self.boltzmann_parameter = float(boltzmann_parameter)
+        self.no_trough_prob = float(no_trough_prob)
+
+    def observe(self, y_frames: torch.Tensor,
+                frame_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Observations ``(..., 2 n_pitch_bins, T)`` and voicing ``(..., T)`` of frames
+        ``(..., frame_length, T)``."""
+        return _pyin_observe(
+            y_frames, sr=self.sr, fmin=self.fmin, fmax=self.fmax, frame_length=frame_length,
+            thresholds=self.thresholds, beta_probs=self.beta_probs,
+            n_pitch_bins=self.n_pitch_bins, n_bins_per_semitone=self.n_bins_per_semitone,
+            boltzmann_parameter=self.boltzmann_parameter, no_trough_prob=self.no_trough_prob)
+
+    def decode(self, obs_full: torch.Tensor,
+               fill_na: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(f0, voiced_flag)`` of every frame: the Viterbi path through the observations."""
+        from ..sequence import _decode
+
+        device, dtype = obs_full.device, obs_full.dtype
+        lpi = device_table(("pyin_log_p_init", self.key), lambda: self.log_p_init, device,
+                           dtype)
+        states, _ = _decode(_pyin_log_prob(obs_full), self.log_trans, lpi,
+                            ("pyin_log_trans", self.key))
+        freqs = self.fmin * 2.0 ** (torch.arange(self.n_pitch_bins, dtype=dtype, device=device)
+                                    / (12 * self.n_bins_per_semitone))
+        states = states.long()
+        f0 = freqs[states % self.n_pitch_bins]
+        voiced_flag = states < self.n_pitch_bins
+        if fill_na is not None:
+            f0 = torch.where(voiced_flag, f0, float(fill_na))
+        return f0, voiced_flag
+
+
+def _pyin_observe(y_frames: torch.Tensor, *, sr: float, fmin: float, fmax: float,
+                  frame_length: int, thresholds: np.ndarray, beta_probs: np.ndarray,
+                  n_pitch_bins: int, n_bins_per_semitone: int, boltzmann_parameter: float,
                   no_trough_prob: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """pYIN's frame-wise half: observation probabilities ``(..., 2 n_pitch_bins, T)`` and voicing ``(..., T)``.
+    """pYIN's frame-wise half on frames ``(..., frame_length, T)``: observation probabilities
+    ``(..., 2 n_pitch_bins, T)`` and voicing ``(..., T)``.
 
     Each period candidate's prior mass lands in the pitch bin of its refined
     frequency (candidates above ``fmax`` in a bin that is dropped); the
-    unvoiced states share what the voiced ones leave.
+    unvoiced states share what the voiced ones leave. Each frame is
+    computed on its own, so a block of frames gives the columns of the whole.
     """
-    yin_frames, shifts, is_trough, min_period = _yin_frames(
-        y, sr=sr, fmin=fmin, fmax=fmax, frame_length=frame_length, hop_length=hop_length,
-        center=center, pad_mode=pad_mode)
+    yin_frames, shifts, is_trough, min_period = _yin_of_frames(
+        y_frames, sr=sr, fmin=fmin, fmax=fmax, frame_length=frame_length)
     yin_probs = _pyin_trough_probs(yin_frames, is_trough, thresholds, beta_probs,
                                    boltzmann_parameter, no_trough_prob)
-    periods = torch.arange(min_period, min_period + yin_frames.shape[-2], dtype=y.dtype,
-                           device=y.device)
+    periods = torch.arange(min_period, min_period + yin_frames.shape[-2], dtype=y_frames.dtype,
+                           device=y_frames.device)
     f0_cands = sr / (periods.reshape(-1, 1) + shifts)
     bins = torch.round(12 * n_bins_per_semitone * torch.log2(f0_cands / fmin))
     bins = bins.clamp(0, n_pitch_bins).to(torch.int64)
     observed = torch.zeros((*yin_probs.shape[:-2], n_pitch_bins + 1, yin_probs.shape[-1]),
-                           dtype=y.dtype, device=y.device)
+                           dtype=y_frames.dtype, device=y_frames.device)
     observed = observed.scatter_add(-2, bins, yin_probs)[..., :n_pitch_bins, :]
     voiced_prob = observed.sum(dim=-2, keepdim=True).clamp(0, 1)
     unvoiced = ((1 - voiced_prob) / n_pitch_bins).expand_as(observed)

@@ -8,4 +8,6 @@ production mel kernel and print their times per tile.
 Viterbi kernel's cluster route at other cluster sizes and lanes a column
 than the path's. ``python -m librosa_tpu_torch.diagnostics.path_enhance_routes``
 times routes for ``segment.path_enhance``'s convolutions.
+``python -m librosa_tpu_torch.diagnostics.rfft_batches`` shows whether
+``torch.fft.rfft`` gives a frame the same bits in a smaller batch.
 """

@@ -58,6 +58,46 @@ def test_the_structure_and_infrastructure_modules_pull_in_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_the_parallel_modules_pull_in_no_jax():
+    code = (
+        "import sys\n"
+        "import librosa_tpu_torch as L, librosa_tpu_torch.entry\n"
+        "import librosa_tpu_torch.parallel.mesh, librosa_tpu_torch.parallel.collectives\n"
+        "import librosa_tpu_torch.parallel.sharded, librosa_tpu_torch.parallel.analysis\n"
+        "import librosa_tpu_torch.parallel.constantq, librosa_tpu_torch.parallel.effects\n"
+        "import librosa_tpu_torch.parallel.scaling\n"
+        "assert L.parallel is librosa_tpu_torch.parallel\n"
+        "assert callable(librosa_tpu_torch.entry.dryrun_multichip)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'librosa_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_meshes_try_the_card_by_default(monkeypatch):
+    """With the cuda default and no card, the default meshes raise instead of laying
+    positions on the CPU; positions given explicitly keep their device."""
+    from librosa_tpu_torch import parallel as P
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = L.get_device()
+    L.set_device("cuda")
+    try:
+        for call in (P.time_mesh, lambda: P.make_mesh((1,), ("time",)),
+                     lambda: P.pod_mesh(track_axis=1)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+        mesh = P.time_mesh(devices=["cpu"] * 2)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            P.stft_sharded(np.zeros(2 * 4096, dtype=np.float32), mesh=mesh)
+        out = P.stft_sharded(torch.zeros(2 * 4096), mesh=mesh)
+        assert out.device.type == "cpu"
+    finally:
+        L.set_device(prev)
+
+
 def test_import_and_mfcc_need_no_matplotlib_sklearn_or_joblib():
     """With the three blocked, the package imports, imports none of them, and computes an mfcc."""
     code = (
@@ -172,7 +212,11 @@ def test_no_source_imports_jax_or_the_jax_package():
             "librosa_tpu_torch/feature/inverse.py", "librosa_tpu_torch/ops/spline.py",
             "librosa_tpu_torch/core/spectrum_ext.py", "librosa_tpu_torch/_cache.py",
             "librosa_tpu_torch/display.py", "librosa_tpu_torch/util/profiling.py",
-            "librosa_tpu_torch/ops/ctfft.py", "librosa_tpu_torch/ops/fft.py"} <= names
+            "librosa_tpu_torch/ops/ctfft.py", "librosa_tpu_torch/ops/fft.py",
+            "librosa_tpu_torch/parallel/mesh.py", "librosa_tpu_torch/parallel/collectives.py",
+            "librosa_tpu_torch/parallel/sharded.py", "librosa_tpu_torch/parallel/analysis.py",
+            "librosa_tpu_torch/parallel/constantq.py", "librosa_tpu_torch/parallel/effects.py",
+            "librosa_tpu_torch/parallel/scaling.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
