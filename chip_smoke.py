@@ -117,7 +117,10 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    ``pitch_shift`` by 3 semitones (``res_type='fft'``), ``remix`` with and
    without zero crossings, ``trim`` and ``split`` on a copy with silence,
    ``preemphasis`` and ``deemphasis``; each against float64 numpy and scipy
-   on track 0 (remix, trim and split exactly), the synthesis kernel at the
+   on track 0 (remix, trim and split exactly), ``time_stretch`` at 0.8 and
+   ``pitch_shift`` by 2 semitones on a copy of track 0 with 11025 samples of
+   exact silence against float64 (the silent bins' phases stay 0, and the
+   count of -0.0 real parts cuFFT gives them is printed), the synthesis kernel at the
    slow stretch's shape bit for bit and the dB kernel at trim's against
    their plain versions; times and peak memory;
 4l. features and inversion on the main buffer: ``spectral_bandwidth``,
@@ -167,6 +170,20 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    call, ``scaling_report`` over 1-8 positions of the card (the cost of
    sharding on one card, not scaling), ``dispatch_profile`` of two chains,
    and ``entry.dryrun_multichip(8)`` against float64 autograd;
+4p. the precision dials and the selection scans: the mel kernel on the main
+   buffer at ``precision`` 'default', 'high', 'highest' and ('highest',
+   'highest', 'default'), each against its plain version, against the plain
+   projection at that setting of the kernel's own power spectrum, and
+   against float64, 'highest' bit-equal to a call with no precision; the
+   'matmul' route's power spectrum of the main frames at the three settings
+   against float64 and against the rounded operands through exact float32
+   products, with the ``torch.backends`` flags unchanged; ``onset_detect``
+   (``sparse=False``) on the main buffer's onset envelope for 'greedy',
+   'dp_count' and 'dp_value' at wait 0, 10 and 300, the ``peak_scan``
+   kernels (``csrc/peak_scan.cu``) bit for bit against their plain loops on
+   every launch of that path and on ragged small cases; times of every
+   setting and scan beside the plain versions, the bounds and the scans'
+   chain probe;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024, and a strided row
@@ -2316,6 +2333,8 @@ MIN_PV_MAG_SNR_DB = 60.0   # the phase_vocoder golden's floor, on the magnitudes
 MIN_PRE_SNR_DB = 130.0     # an FIR of two taps in float32: 148 dB on the CPU
 MIN_DE_SNR_DB = 120.0      # the doubling scan in float32: 132.5 dB on the CPU (golden 125)
 TRIM_TIE_DB = 1e-3         # a frame this close to the threshold in float64 may go either way
+F1_START = 3 * SR          # where the copy of track 0 falls silent ...
+F1_SILENCE = SR // 2       # ... for 11025 samples: 17 whole frames of zeros at n_fft 2048
 
 
 def chirp_batch(torch, L, device):
@@ -2629,7 +2648,7 @@ def phase_vocoder64(D, rate):
     t = np.arange(0.0, n, rate)
     i0 = np.floor(t).astype(np.int64)
     i1 = np.minimum(i0 + 1, n - 1)
-    ph = np.angle(D)
+    ph = np.where(D == 0, 0.0, np.angle(D))  # an exact-zero bin has phase 0, as in the port
     phase = np.cumsum(np.concatenate([ph[:, i0[:1]], (ph[:, i1] - ph[:, i0])[:, :-1]], axis=1),
                       axis=1)
     i0e = np.clip(i0, 0, n - 2)
@@ -2714,6 +2733,28 @@ def effects_phase(torch, L, device, y, win) -> dict:
     floors = {"stretch 1.25": MIN_STRETCH_SNR_DB, "stretch 0.8": MIN_STRETCH_SNR_DB,
               "phase_vocoder 0.8, |.|": MIN_PV_MAG_SNR_DB,
               "pitch +3": MIN_STRETCH_SNR_DB, "pre": MIN_PRE_SNR_DB, "de": MIN_DE_SNR_DB}
+    # a copy of track 0 with 11025 samples of exact silence: whole frames of zeros, whose
+    # bins must keep phase 0 whatever the sign of zero cuFFT gives them
+    y_sil = y[:1].clone()
+    y_sil[:, F1_START:F1_START + F1_SILENCE] = 0
+    D_sil = L.stft(y_sil)
+    zero = D_sil == 0
+    neg_zero = int((zero & torch.signbit(D_sil.real)).sum())
+    del D_sil
+    D64 = stft64(y_sil[0].cpu().numpy(), win, n_fft=2048, hop=512)
+    snrs["silent stretch 0.8"] = snr_db(
+        L.effects.time_stretch(y_sil, rate=0.8)[0].cpu().numpy(),
+        istft64(phase_vocoder64(D64, 0.8), win, n_fft=2048, hop=512, length=round(n / 0.8)))
+    rate = 2.0 ** (-2 / 12)
+    slow = istft64(phase_vocoder64(D64, rate), win, n_fft=2048, hop=512, length=round(n / rate))
+    num = int(np.ceil(len(slow) * (float(SR) / (float(SR) / rate))))
+    snrs["silent pitch +2"] = snr_db(
+        L.effects.pitch_shift(y_sil, sr=SR, n_steps=2, res_type="fft")[0].cpu().numpy(),
+        scipy.signal.resample(slow, num)[:n])
+    floors["silent stretch 0.8"] = floors["silent pitch +2"] = MIN_STRETCH_SNR_DB
+    print(f"silent stretch: {int(zero.sum())} exact-zero bins in the card's STFT of the copy, "
+          f"{neg_zero} of them with a real part of -0.0")
+    del zero, y_sil
     print("effects track 0 vs float64 numpy/scipy: " + ", ".join(
         f"{k} {v:.1f} dB (floor {floors[k]})" for k, v in snrs.items()))
     for key, s in snrs.items():
@@ -3819,6 +3860,279 @@ def sharded_phase(torch, L, device, y) -> dict:
                        "host_s": dry_s}}
 
 
+DIAL_SETTINGS = {"default": "default", "high": "high", "highest": "highest",
+                 "(highest, highest, default)": ("highest", "highest", "default")}
+# the kernel's projection at a setting against the plain projection at that setting of the
+# kernel's own power spectrum (its identity-basis output, exact): the same rounded operands,
+# products exact in float32, summed in another order
+MIN_DIAL_SAME_SPECTRUM_SNR_DB = 125.0
+# the kernel against its plain version end to end. The two power spectra differ in their last
+# bits (K1's FFT against cuFFT), and the lower settings round each to bfloat16, so a value near
+# a rounding boundary lands on the other side in one of them. On the CPU, float32 spectra 135.9
+# dB apart gave 100.6 dB at 'default' and 126.6 at 'high' after the rounding; on an H100 the
+# kernel against its plain version gave 96.2 and 124.8 dB (135.6 at 'highest')
+MIN_DIAL_PLAIN_SNR_DB = {"highest": MIN_SNR_DB, "high": 110.0, "default": 85.0}
+# against float64 (tests/test_torch_precision.py measured 138.9 / 110.6 / 56.3 dB on the CPU)
+MIN_DIAL_F64_SNR_DB = {"highest": MIN_SNR_DB, "high": 100.0, "default": 50.0}
+# the 'matmul' route's power spectrum against float64 (CPU: 128.9 / 108.3 / 53.4 dB), and its
+# tensor-core products against the same rounded operands through exact float32 products: sums
+# of 2048 exact products in two orders, the tensor cores' float32 accumulation against SGEMM's
+# (on an H100: 120.5 dB on normal operands, 103.9 on the main frames at 'default'). A wrong
+# route sits near the lower settings' own error: bf16 results or TF32 operands, 50-60 dB
+MIN_MATMUL_F64_SNR_DB = {"highest": 115.0, "high": 100.0, "default": 45.0}
+MIN_MATMUL_EMULATION_SNR_DB = 95.0
+BACKEND_FLAGS = ("cuda.matmul.allow_tf32", "cuda.matmul.allow_bf16_reduced_precision_reduction",
+                 "cudnn.allow_tf32")
+SCAN_METHODS = ("greedy", "dp_count", "dp_value")
+SCAN_WAITS = (0, 10, 300)
+H100_BF16_FLOP_S = 989e12  # tensor cores, dense
+
+
+def backend_flags(torch) -> dict:
+    """The ``torch.backends`` flags a lower precision must leave as it found them."""
+    out = {}
+    for path in BACKEND_FLAGS:
+        obj = torch.backends
+        *parents, leaf = path.split(".")
+        for part in parents:
+            obj = getattr(obj, part)
+        out[path] = getattr(obj, leaf)
+    out["float32_matmul_precision"] = torch.get_float32_matmul_precision()
+    return out
+
+
+def track_snr_min(torch, got, want) -> float:
+    """The smallest per-track SNR of ``got`` against ``want``, both ``(tracks, ...)`` on the card."""
+    dims = tuple(range(1, got.ndim))
+    err = (got.double() - want.double()).square().sum(dim=dims)
+    sig = want.double().square().sum(dim=dims)
+    return float((10 * torch.log10(sig / err.clamp(min=1e-300))).min())
+
+
+def scan_cases(rng):
+    """(label, cand (rows, T) bool, gain float32, wait): ragged rows and lengths, exact ties."""
+    cases = []
+    for rows, T in ((1, 1), (1, 7), (16, 1), (33, 1000), (70, 257), (5, 8193)):
+        for wait in (0, 1, 5, T + 3):
+            cand = rng.rand(rows, T) < 0.3
+            gain = (np.floor(rng.rand(rows, T) * 8) / 8).astype(np.float32)  # ties by design
+            cases.append((f"rows {rows} T {T} wait {wait}", cand, gain, wait))
+    return cases
+
+
+def precision_scan_phase(torch, L, device, y, win, mel_basis) -> dict:
+    """Phase 4p: K1's precision dial and the 'matmul' route's, each setting against its plain
+    version and float64 with times; the peak_scan kernels bit for bit against their plain loops
+    behind ``onset_detect``, with times, launches and the chain bound."""
+    from librosa_tpu_torch.core import spectrum
+    from librosa_tpu_torch.ops import db_scale, fft, fused_stft, peaks, precision
+    from librosa_tpu_torch.ops.framing import frame_signal
+    from librosa_tpu_torch.util.utils import pad_last
+
+    rows, n = MAIN_SHAPE
+    n_fft, hop = MAIN["n_fft"], MAIN["hop_length"]
+    kw = dict(n_fft=n_fft, hop_length=hop)
+    win_d = torch.from_numpy(win.astype(np.float32)).to(device)
+    basis_d = torch.from_numpy(mel_basis.astype(np.float32)).to(device)
+    y0 = y[0].cpu().numpy()
+    ref_mel = mel64(y0, win, mel_basis, n_fft=n_fft, hop=hop)
+
+    # the path: K1 at each setting, onset_detect over the three methods and three waits
+    env = L.onset.onset_strength(y=y, sr=SR)
+    torch.cuda.synchronize()
+    fused_stft.launches = db_scale.launches = peaks.launches = 0
+    k_out = {label: fused_stft.stft_mel_fused(y, win_d, basis_d, precision=p, **kw)
+             for label, p in DIAL_SETTINGS.items()}
+    k_none = fused_stft.stft_mel_fused(y, win_d, basis_d, **kw)
+    picks = {}
+    with CallSpy(peaks, "greedy_scan", keep=100) as g_spy, \
+            CallSpy(peaks, "dp_scan", keep=100) as d_spy:
+        for method in SCAN_METHODS:
+            for wait in SCAN_WAITS:
+                picks[method, wait] = L.onset.onset_detect(
+                    onset_envelope=env, sr=SR, sparse=False, method=method, wait=wait)
+    torch.cuda.synchronize()
+    counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
+              "peak_scan_greedy": len(g_spy.calls), "peak_scan_dp": len(d_spy.calls)}
+    print(f"precision and scans: K1 at {list(DIAL_SETTINGS)} and with no precision on "
+          f"{tuple(y.shape)}; onset_detect(sparse=False) on the envelope {tuple(env.shape)} for "
+          f"{SCAN_METHODS} at wait {SCAN_WAITS}; launches {counts}, peak_scan counter "
+          f"{peaks.launches}")
+    n_scans = len(SCAN_WAITS)
+    if counts != {"stft_mel": len(DIAL_SETTINGS) + 1, "db_scale": 0,
+                  "peak_scan_greedy": n_scans, "peak_scan_dp": 2 * n_scans} \
+            or peaks.launches != 3 * n_scans:
+        raise AssertionError(f"phase 4p launched {counts} (peak_scan counter {peaks.launches})")
+    if not torch.equal(k_out["highest"], k_none):
+        raise AssertionError("K1 at 'highest' is not bit-equal to a call with no precision")
+
+    # K1's dial: kernel against plain, against the plain projection of the kernel's own
+    # spectrum, and against float64; times and bounds
+    eye, eye_bands = spectrum._eye_device(n_fft, device)
+    y2 = y[:2]
+    spec_k = fused_stft._fused(y2, win_d, eye, eye_bands, power=2.0, center=True,
+                               pad_mode="constant", **kw)
+    n_frames = k_none.shape[-1]
+    frames = rows * n_frames
+    nnz = int(torch.count_nonzero(basis_d))
+    fft_flops = fused_stft.flops_per_frame(n_fft, 0) * frames
+    bytes_ms = 1e3 * (4 * rows * n + 4 * MAIN["n_mels"] * frames) / H100_HBM_BYTES_S
+    dial = {}
+    for label, p in DIAL_SETTINGS.items():
+        setting = precision.normalize3(p)[2]
+        plain = fused_stft.stft_mel_reference(y, win_d, basis_d, precision=p, **kw)
+        same = precision.matmul(basis_d, spec_k, setting)
+        kern2 = fused_stft.stft_mel_fused(y2, win_d, basis_d, precision=p, **kw)
+        # a projection term is 2 operations: float32 at 'highest', bf16 products otherwise
+        proj_terms = {"highest": 1, "default": 1, "high": 3}[setting] * 2 * nnz * frames
+        ops_ms = 1e3 * (fft_flops / H100_F32_FLOP_S + proj_terms / (
+            H100_F32_FLOP_S if setting == "highest" else H100_BF16_FLOP_S))
+        row = {
+            "basis_setting": setting,
+            "snr_vs_plain_db": track_snr_min(torch, k_out[label], plain),
+            "same_spectrum_snr_db": track_snr_min(torch, kern2, same),
+            "snr_vs_f64_db": snr_db(k_out[label][0].cpu().numpy(), ref_mel),
+            "plain_snr_vs_f64_db": snr_db(plain[0].cpu().numpy(), ref_mel),
+            "max_abs_err": float((k_out[label] - plain).abs().max()),
+            "launches": 1,
+            "ms": time_ms(torch, lambda: fused_stft.stft_mel_fused(
+                y, win_d, basis_d, precision=p, **kw), 20),
+            "plain_ms": time_ms(torch, lambda: fused_stft.stft_mel_reference(
+                y, win_d, basis_d, precision=p, **kw), 3),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        del plain, same, kern2
+        dial[label] = row
+        print(f"K1 precision {label}: kernel vs plain {row['snr_vs_plain_db']:.1f} dB (floor "
+              f"{MIN_DIAL_PLAIN_SNR_DB[setting]}), vs the plain projection of its own spectrum "
+              f"{row['same_spectrum_snr_db']:.1f} dB (floor {MIN_DIAL_SAME_SPECTRUM_SNR_DB}), "
+              f"track 0 vs float64 {row['snr_vs_f64_db']:.1f} dB (plain "
+              f"{row['plain_snr_vs_f64_db']:.1f}; floor {MIN_DIAL_F64_SNR_DB[setting]}); "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if not (row["snr_vs_plain_db"] >= MIN_DIAL_PLAIN_SNR_DB[setting]
+                and row["same_spectrum_snr_db"] >= MIN_DIAL_SAME_SPECTRUM_SNR_DB
+                and row["snr_vs_f64_db"] >= MIN_DIAL_F64_SNR_DB[setting]):
+            raise AssertionError(f"K1 precision {label}: {row}")
+    del k_out, k_none, spec_k, eye
+
+    # the 'matmul' route's dial on the main frames
+    frames_d = frame_signal(pad_last(y, n_fft // 2, n_fft // 2, mode="constant"),
+                            frame_length=n_fft, hop_length=hop) * win_d
+    pw64 = spec64(y0, win, n_fft=n_fft, hop=hop).T ** 2
+    Ct, St = fft.dft_mats_device(n_fft, torch.float32, device)
+    route = {}
+    try:
+        for setting in ("default", "high", "highest"):
+            before = backend_flags(torch)
+            fft.set_stft_backend("matmul", precision=setting)
+            pw = fft.frames_power_spectrum(frames_d)
+            torch.cuda.synchronize()
+            after = backend_flags(torch)
+            if after != before:
+                raise AssertionError(f"'matmul' at {setting!r} changed {before} to {after}")
+            re, im = (precision.matmul(frames_d, M, setting) for M in (Ct, St))
+            emulated = re * re + im * im
+            del re, im
+            row = {"snr_vs_f64_db": snr_db(pw[0].cpu().numpy(), pw64),
+                   "snr_vs_emulation_db": track_snr_min(torch, pw, emulated),
+                   "ms": time_ms(torch, lambda: fft.frames_power_spectrum(frames_d), 3),
+                   "emulation_ms": time_ms(torch, lambda: [
+                       precision.matmul(frames_d, M, setting) for M in (Ct, St)], 3),
+                   "flags_unchanged": True}
+            del pw, emulated
+            route[setting] = row
+            print(f"'matmul' route at {setting}: track 0 vs float64 {row['snr_vs_f64_db']:.1f} dB "
+                  f"(floor {MIN_MATMUL_F64_SNR_DB[setting]}), card route vs the rounded operands "
+                  f"through exact float32 products {row['snr_vs_emulation_db']:.1f} dB, "
+                  f"{row['ms']:.4f} ms (exact-f32 products of the rounded operands "
+                  f"{row['emulation_ms']:.4f} ms); torch.backends flags unchanged: {after}")
+            if not (row["snr_vs_f64_db"] >= MIN_MATMUL_F64_SNR_DB[setting]
+                    and row["snr_vs_emulation_db"] >= MIN_MATMUL_EMULATION_SNR_DB):
+                raise AssertionError(f"'matmul' route at {setting}: {row}")
+    finally:
+        fft.set_stft_backend("auto", precision="highest")
+    del frames_d, pw64
+
+    # the scans: each launch of the path against its plain loop, bit for bit
+    for args, _ in g_spy.calls:
+        cand, wait = args
+        got = peaks.greedy_scan(cand, wait).cpu().numpy()
+        if not np.array_equal(got, peaks.greedy_select(cand.cpu().numpy(), wait)):
+            raise AssertionError(f"greedy_scan at wait {wait}: not the plain loop's mask")
+    for args, _ in d_spy.calls:
+        cand, gain, wait = args
+        got = peaks.dp_scan(cand, gain, wait).cpu().numpy()
+        if not np.array_equal(got, peaks.dp_flags(cand.cpu().numpy(), gain.cpu().numpy(),
+                                                  wait)):
+            raise AssertionError(f"dp_scan at wait {wait}: not the plain loop's flags")
+    for i, wait in enumerate(SCAN_WAITS):
+        cand = g_spy.calls[i][0][0].cpu().numpy()
+        if not np.array_equal(picks["greedy", wait], peaks.greedy_select(cand, wait)):
+            raise AssertionError(f"onset_detect greedy at wait {wait}: not the plain loop's")
+        for j, method in enumerate(("dp_count", "dp_value")):
+            cand, gain, _ = d_spy.calls[j * n_scans + i][0]
+            want = peaks.dp_select(cand.cpu().numpy(), gain.cpu().numpy(), wait)
+            if not np.array_equal(picks[method, wait], want):
+                raise AssertionError(f"onset_detect {method} at wait {wait}: not the plain loop's")
+    rng = np.random.RandomState(16)
+    small = scan_cases(rng)
+    for label, cand, gain, wait in small:
+        c_d, g_d = torch.from_numpy(cand).to(device), torch.from_numpy(gain).to(device)
+        if not (np.array_equal(peaks.greedy_scan(c_d, wait).cpu().numpy(),
+                               peaks.greedy_select(cand, wait))
+                and np.array_equal(peaks.dp_scan(c_d, g_d, wait).cpu().numpy(),
+                                   peaks.dp_flags(cand, gain, wait))):
+            raise AssertionError(f"peak_scan {label}: not the plain loops' bits")
+    print(f"peak_scan: every launch of the path ({len(g_spy.calls)} greedy, {len(d_spy.calls)} "
+          f"dp) and {len(small)} small cases (rows 1-70, T 1-8193, wait 0 to T + 3, tied "
+          f"gains) bit-equal to the plain loops; peaks per method and wait: "
+          + ", ".join(f"{m} {w}: {int(v.sum())}" for (m, w), v in picks.items()))
+
+    # times: each kernel at each wait beside its plain loop (host clock), bound and chain
+    T = env.shape[-1]
+    scans = {}
+    for name, calls in (("peak_scan_greedy", g_spy.calls), ("peak_scan_dp", d_spy.calls)):
+        dp = name == "peak_scan_dp"
+        ms, plain_ms, chain = {}, {}, {}
+        for i, wait in enumerate(SCAN_WAITS):
+            args = calls[n_scans + i][0] if dp else calls[i][0]  # dp_value's gains for the DP
+            host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
+            fn = peaks.dp_scan if dp else peaks.greedy_scan
+            plain = peaks.dp_flags if dp else peaks.greedy_select
+            ms[wait] = time_ms(torch, lambda: fn(*args), 20)
+            plain_ms[wait] = 1e3 * best_s(lambda: plain(*host), 2)
+            chain[wait] = peaks.chain_floor_ms(rows, T, wait, dp=dp, device=device)
+        moved = rows * T * (1 + 4 + 1 if dp else 1 + 1)  # flags (and gains) in, flags out
+        b_ms = 1e3 * moved / H100_HBM_BYTES_S
+        o_ms = 1e3 * rows * T * (2 if dp else 3) / H100_F32_FLOP_S
+        scans[name] = {
+            "name": name, "route": "cuda", "source": "librosa_tpu_torch/csrc/peak_scan.cu",
+            "replaces": ("librosa_tpu/ops/peaks.py:158 dp_values (an XLA scan: no Pallas kernel "
+                         "replaced)" if dp else "librosa_tpu/ops/peaks.py:99 greedy_mask (an XLA "
+                         "scan: no Pallas kernel replaced)"),
+            "launches": counts[name], "launches_by_path": {"precision_scans": counts[name]},
+            "max_abs_err": 0.0, "ms": ms[10], "plain_ms": plain_ms[10],
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None, "chain_bound_ms": chain[10],
+            "by_wait": {str(w): {"ms": ms[w], "plain_ms": plain_ms[w], "chain_bound_ms": chain[w]}
+                        for w in SCAN_WAITS},
+            "shape": [rows, T],
+        }
+        print(f"{name} on {(rows, T)}: " + ", ".join(
+            f"wait {w} kernel {ms[w]:.4f} ms, plain loop {plain_ms[w]:.4f} ms (host clock), "
+            f"chain {chain[w]:.4f} ms" for w in SCAN_WAITS)
+            + f"; bound {max(b_ms, o_ms):.6f} ms ({scans[name]['bound_by']})")
+    detect_s = {m: best_s(lambda: L.onset.onset_detect(onset_envelope=env, sr=SR, sparse=False,
+                                                       method=m, wait=10), 3)
+                for m in SCAN_METHODS}
+    print("onset_detect(sparse=False, wait=10) on the card end to end (s, host clock): "
+          + ", ".join(f"{m} {v:.6f}" for m, v in detect_s.items()))
+    return {"launches": counts, "dial": dial, "matmul_route": route, "scans": scans,
+            "onset_detect_s": detect_s}
+
+
 def main() -> int:
     import torch
 
@@ -4010,6 +4324,7 @@ def main() -> int:
     pcen_ext = pcen_spectrum_ext_phase(torch, L, device, y, win)
     seg_infra = segment_infrastructure_phase(torch, L, device, y)
     sharded = sharded_phase(torch, L, device, y)
+    dial_scans = precision_scan_phase(torch, L, device, y, win, mel_basis)
     stft_mel_entry = {
         "name": "stft_mel",
         "route": "cuda",
@@ -4034,6 +4349,7 @@ def main() -> int:
         "library_ms": library_ms,
         "snr_db": main_snr,
         "other_bases": {**stack["bases"], "pseudo_cqt": config4["pseudo_cqt_basis"]},
+        "precision": dial_scans["dial"],
         "reconstruction_shape": recon["stft_mel"],
     }
     db_entry["launches"] = (main_db_launches + stack["launches"]["db_scale"]
@@ -4065,11 +4381,13 @@ def main() -> int:
                           (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi")):
         for path, phase in (("alignment_structure", structure), ("effects", effects),
                             ("features_inversion", features), ("pcen_spectrum_ext", pcen_ext),
-                            ("segment_infrastructure", seg_infra), ("sharded", sharded)):
+                            ("segment_infrastructure", seg_infra), ("sharded", sharded),
+                            ("precision_scans", dial_scans)):
             entry["launches"] += phase["launches"].get(kernel, 0)
             entry["launches_by_path"][path] = phase["launches"].get(kernel, 0)
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,
-                                  config5["beat_dp"], config5["viterbi"], *diag_entries]}))
+                                  config5["beat_dp"], config5["viterbi"],
+                                  *dial_scans["scans"].values(), *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -412,7 +412,9 @@ def phase_vocoder(
     (``0, rate, 2 rate, ...`` for ``rate``; ``t_out`` in ``[0, n)`` gives
     them directly). Its phase is the first frame's plus the sum of the
     phase advances ``angle(D[i0 + 1]) - angle(D[i0])`` of the frames before
-    it; its magnitude is interpolated from ``|D|`` at ``t_out`` by ``kind``:
+    it, where an exact-zero bin's angle is 0 whatever the signs of its zeros
+    (``torch.angle`` gives pi for a real part of -0.0, and whether an FFT
+    returns -0.0 for a silent frame depends on its build); its magnitude is interpolated from ``|D|`` at ``t_out`` by ``kind``:
     ``'linear'`` (extrapolating the last segment past the last frame),
     ``'nearest'`` (a half rounds down) or any kind of scipy's ``interp1d``.
     The index tables are built on the host; the phases, their running sum
@@ -446,7 +448,7 @@ def phase_vocoder(
     def device_index(idx: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(D.device)
 
-    ph = torch.angle(D)
+    ph = torch.angle(D).masked_fill_(D == 0, 0.0)
     diff = ph.index_select(-1, device_index(i1)) - ph.index_select(-1, device_index(i0))
     first = ph[..., int(i0[0]):int(i0[0]) + 1]
     phase = torch.cumsum(torch.cat([first, diff[..., :-1]], dim=-1), dim=-1)

@@ -57,13 +57,21 @@
 //      equal addresses are one broadcast), and rows of like width share a
 //      warp. Partial sums cover at most 64 bins before they join the total;
 //      six shuffles sum the four phases and leave each lane two frames to
-//      write.
+//      write. The projection has three modes, the basis entry of the JAX
+//      kernel's `precision` (ops/precision.py): exact float32 (0, the
+//      default), both operands rounded to bf16 before each multiply-add
+//      (1, DEFAULT), or the three products of their bf16 halves, hi*hi +
+//      hi*lo + lo*hi (2, HIGH). A bf16 product is exact in float32, so each
+//      mode is float32 multiply-adds of rounded operands; one branch on the
+//      mode, outside the row loop, picks the loop.
 // Frames, spectra and power spectra live only in registers and shared
-// memory. All arithmetic is float32 (no TF32, no bf16, no fast math);
-// indices into device memory are 64-bit. At n_fft 2048 / hop 512 a block
+// memory. All arithmetic is float32 (no TF32, no fast math; bf16 only as
+// the rounding of the lower projection modes); indices into device memory
+// are 64-bit. At n_fft 2048 / hop 512 a block
 // holds 8 frames in 89 KB of shared memory and at most 128 registers a
 // thread, so two blocks (16 warps) share an SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -281,13 +289,94 @@ __device__ __forceinline__ void unpack_pair(
   fre[H - k] = spectral_power(ar - ci, ai + cr, power);
 }
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// acc + w * p in the projection's MODE, w given as its parts (w_hi = w in mode 0,
+// bf16(w) otherwise; w_lo = bf16(w - w_hi) in mode 2)
+template <int MODE>
+__device__ __forceinline__ float project_term(float w_hi, float w_lo, float p, float acc) {
+  if constexpr (MODE == 0) {
+    return fmaf(w_hi, p, acc);
+  } else if constexpr (MODE == 1) {
+    return fmaf(w_hi, bf16_round(p), acc);
+  } else {
+    const float p_hi = bf16_round(p);
+    const float p_lo = bf16_round(p - p_hi);
+    return fmaf(w_lo, p_hi, fmaf(w_hi, p_lo, fmaf(w_hi, p_hi, acc)));
+  }
+}
+
+// Step 4: a warp takes 8 basis rows at a time, lane = 4 * row + phase
+template <int MODE>
+__device__ __forceinline__ void project(
+    const float* __restrict__ basis, const int* __restrict__ bands, float* __restrict__ out,
+    const float* frames, int64_t track, int64_t t0, int64_t n_frames, int n_out, int tt,
+    int fb, int n_bins) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int phase = lane & 3;
+  for (int m0 = 8 * warp; m0 < n_out; m0 += nthreads >> 2) {
+    const int m = m0 + (lane >> 2);
+    int lo = 0, hi = 0;
+    if (m < n_out) {
+      lo = max(__ldg(bands + 2 * m), 0);
+      hi = min(__ldg(bands + 2 * m + 1), n_bins);
+    }
+    const float* row = basis + (int64_t)m * n_bins;
+    float total[kMaxTile];
+#pragma unroll
+    for (int f = 0; f < kMaxTile; ++f) total[f] = 0.0f;
+    for (int k0 = lo; k0 < hi; k0 += kChunk) {
+      const int k1 = min(k0 + kChunk, hi);
+      float part[kMaxTile];
+#pragma unroll
+      for (int f = 0; f < kMaxTile; ++f) part[f] = 0.0f;
+#pragma unroll 2
+      for (int k = k0 + phase; k < k1; k += 4) {
+        const float w = __ldg(row + k);
+        const float w_hi = MODE == 0 ? w : bf16_round(w);
+        const float w_lo = MODE == 2 ? bf16_round(w - w_hi) : 0.0f;
+#pragma unroll
+        for (int f = 0; f < kMaxTile; ++f) {
+          if (f < tt) part[f] = project_term<MODE>(w_hi, w_lo, frames[(size_t)f * fb + k], part[f]);
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < kMaxTile; ++f) total[f] += part[f];
+    }
+    // sum over the 4 phases, halving what each lane keeps: phase j ends with frames j and j + 4
+    __syncwarp();
+    float kept[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int f = (i & 1) + 4 * (i >> 1);  // 0, 1, 4, 5, each paired with f + 2
+      const bool upper = phase & 2;
+      const float send = upper ? total[f] : total[f + 2];
+      kept[i] = (upper ? total[f + 2] : total[f]) + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool upper = phase & 1;
+      const float send = upper ? kept[2 * i] : kept[2 * i + 1];
+      const float sum = (upper ? kept[2 * i + 1] : kept[2 * i])
+                        + __shfl_xor_sync(0xffffffffu, send, 1);
+      const int f = phase + 4 * i;
+      if (m < n_out && f < tt && t0 + f < n_frames) {
+        out[(track * n_out + m) * n_frames + t0 + f] = sum;
+      }
+    }
+  }
+}
+
 template <int LOG2H>
 __global__ void __launch_bounds__(kThreads, 2) stft_mel_kernel(
     const float* __restrict__ y, const float* __restrict__ win,
     const float* __restrict__ tw, const float* __restrict__ basis,
     const int* __restrict__ bands, float* __restrict__ out, int64_t sig_len,
     int64_t n_frames, int hop, int64_t lpad, int reflect, int n_out, int tt,
-    int fb, int span_alloc, int64_t tiles_per_track, float power) {
+    int fb, int span_alloc, int64_t tiles_per_track, float power, int mode) {
   using P = Plan<LOG2H>;
   constexpr int H = P::kH, N = 2 * H, PTS = P::kPoints, T = P::kT;
   extern __shared__ __align__(16) float smem[];
@@ -361,58 +450,13 @@ __global__ void __launch_bounds__(kThreads, 2) stft_mel_kernel(
   }
   __syncthreads();
 
-  // 4. banded projection: a warp takes 8 basis rows at a time, lane = 4 * row + phase
-  const int warp = tid >> 5, lane = tid & 31;
-  const int phase = lane & 3;
-  const int n_bins = H + 1;
-  for (int m0 = 8 * warp; m0 < n_out; m0 += nthreads >> 2) {
-    const int m = m0 + (lane >> 2);
-    int lo = 0, hi = 0;
-    if (m < n_out) {
-      lo = max(__ldg(bands + 2 * m), 0);
-      hi = min(__ldg(bands + 2 * m + 1), n_bins);
-    }
-    const float* row = basis + (int64_t)m * n_bins;
-    float total[kMaxTile];
-#pragma unroll
-    for (int f = 0; f < kMaxTile; ++f) total[f] = 0.0f;
-    for (int k0 = lo; k0 < hi; k0 += kChunk) {
-      const int k1 = min(k0 + kChunk, hi);
-      float part[kMaxTile];
-#pragma unroll
-      for (int f = 0; f < kMaxTile; ++f) part[f] = 0.0f;
-#pragma unroll 2
-      for (int k = k0 + phase; k < k1; k += 4) {
-        const float w = __ldg(row + k);
-#pragma unroll
-        for (int f = 0; f < kMaxTile; ++f) {
-          if (f < tt) part[f] = fmaf(w, frames[(size_t)f * fb + k], part[f]);
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < kMaxTile; ++f) total[f] += part[f];
-    }
-    // sum over the 4 phases, halving what each lane keeps: phase j ends with frames j and j + 4
-    __syncwarp();
-    float kept[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int f = (i & 1) + 4 * (i >> 1);  // 0, 1, 4, 5, each paired with f + 2
-      const bool upper = phase & 2;
-      const float send = upper ? total[f] : total[f + 2];
-      kept[i] = (upper ? total[f + 2] : total[f]) + __shfl_xor_sync(0xffffffffu, send, 2);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const bool upper = phase & 1;
-      const float send = upper ? kept[2 * i] : kept[2 * i + 1];
-      const float sum = (upper ? kept[2 * i + 1] : kept[2 * i])
-                        + __shfl_xor_sync(0xffffffffu, send, 1);
-      const int f = phase + 4 * i;
-      if (m < n_out && f < tt && t0 + f < n_frames) {
-        out[(track * n_out + m) * n_frames + t0 + f] = sum;
-      }
-    }
+  // 4. banded projection, in the mode's arithmetic
+  if (mode == 1) {
+    project<1>(basis, bands, out, frames, track, t0, n_frames, n_out, tt, fb, H + 1);
+  } else if (mode == 2) {
+    project<2>(basis, bands, out, frames, track, t0, n_frames, n_out, tt, fb, H + 1);
+  } else {
+    project<0>(basis, bands, out, frames, track, t0, n_frames, n_out, tt, fb, H + 1);
   }
 }
 
@@ -422,10 +466,11 @@ template <int LOG2H>
 int launch(const float* y, const float* win, const float* tw, const float* basis,
            const int* bands, float* out, long long n_tracks, long long sig_len,
            long long n_frames, int hop, long long lpad, int reflect, int n_out, int tt,
-           float power, int smem, cudaStream_t stream) {
+           float power, int smem, int mode, cudaStream_t stream) {
   using P = Plan<LOG2H>;
   static int smem_limit[kMaxDevices];  // largest dynamic shared memory allowed so far
   if (tt < 1 || tt > kMaxTile || (tt & (tt - 1))) return (int)cudaErrorInvalidValue;
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   // whole frames on every thread in every round, and whole warps
   const int threads = tt * P::kT < kThreads ? tt * P::kT : kThreads;
   if (threads % P::kT || threads % 32) return (int)cudaErrorInvalidValue;
@@ -449,7 +494,7 @@ int launch(const float* y, const float* win, const float* tw, const float* basis
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   stft_mel_kernel<LOG2H><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
       y, win, tw, basis, bands, out, sig_len, n_frames, hop, lpad, reflect, n_out, tt, fb,
-      span_alloc, tiles, power);
+      span_alloc, tiles, power, mode);
   return (int)cudaGetLastError();
 }
 
@@ -457,17 +502,18 @@ int launch(const float* y, const float* win, const float* tw, const float* basis
 
 // Launch on `stream` with `smem` bytes of dynamic shared memory per block
 // (ops/fused_stft.py:_smem_bytes). `tw` is ops/fused_stft.py:_twiddles(n_fft),
-// `basis` row-major (n_out, n_fft/2 + 1), `bands` int32 (n_out, 2).
+// `basis` row-major (n_out, n_fft/2 + 1), `bands` int32 (n_out, 2); `mode` the
+// projection's (0 exact, 1 bf16 operands, 2 bf16_3x: ops/precision.py:MODES).
 // Returns cudaGetLastError() (0 on success).
 extern "C" int stft_mel_launch(
     const float* y, const float* win, const float* tw, const float* basis,
     const int* bands, float* out, long long n_tracks, long long sig_len,
     long long n_frames, int n_fft, int hop, long long lpad, int reflect, int n_out,
-    int tt, float power, int smem, void* stream) {
+    int tt, float power, int smem, int mode, void* stream) {
 #define STFT_MEL_CASE(LOG2H)                                                          \
   case 2 << LOG2H:                                                                    \
     return launch<LOG2H>(y, win, tw, basis, bands, out, n_tracks, sig_len, n_frames,  \
-                         hop, lpad, reflect, n_out, tt, power, smem, (cudaStream_t)stream)
+                         hop, lpad, reflect, n_out, tt, power, smem, mode, (cudaStream_t)stream)
   switch (n_fft) {
     STFT_MEL_CASE(5);
     STFT_MEL_CASE(6);

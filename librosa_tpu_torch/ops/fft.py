@@ -2,7 +2,10 @@
 
 - ``'fft'``: ``torch.fft.rfft`` (cuFFT on the card, pocketfft on the CPU).
 - ``'matmul'``: two products against the cosine and sine matrices of
-  :func:`~librosa_tpu_torch.ops.transforms.dft_matrices`, in exact float32.
+  :func:`~librosa_tpu_torch.ops.transforms.dft_matrices`, at the precision
+  that :func:`set_stft_backend` stores (exact float32 unless asked;
+  :mod:`~librosa_tpu_torch.ops.precision` says what the lower settings
+  compute).
 
 ``'auto'``, the default, resolves to ``'fft'`` on CUDA and on the CPU, as the
 JAX package resolves it off a TPU. The backend also picks the arithmetic of
@@ -20,29 +23,37 @@ from typing import Any, Optional
 
 import torch
 
-from .._device import device_table, exact_f32, get_device
+from .._device import device_table, get_device
+from . import precision as _precision
 from .transforms import dft_matrices
 
-__all__ = ["set_stft_backend", "get_stft_backend", "dft_mats_device", "frames_rdft",
-           "frames_power_spectrum"]
+__all__ = ["set_stft_backend", "get_stft_backend", "get_matmul_precision", "dft_mats_device",
+           "frames_rdft", "frames_power_spectrum", "power_spectrum_at"]
 
 _BACKEND = "auto"  # 'auto' | 'fft' | 'matmul'
+_PRECISION = _precision.HIGHEST  # of the 'matmul' route's products
 
 
 def set_stft_backend(backend: str, *, precision: Optional[str] = None) -> None:
     """Select the framed-DFT route: ``'auto'`` (``'fft'`` here), ``'fft'`` or ``'matmul'``.
 
-    ``precision`` is that of the ``'matmul'`` route's products. The port
-    keeps them exact float32 (no TF32), so only None and ``'highest'`` are
-    accepted.
+    ``precision`` is that of the ``'matmul'`` route's two products: a name
+    that ``jax.lax.Precision`` takes (``'highest'``, ``'high'``,
+    ``'default'`` and their aliases, :func:`~librosa_tpu_torch.ops.precision.normalize`).
+    It is kept as module state, as in the JAX package; None keeps the
+    setting already stored, which starts as ``'highest'`` (exact float32).
+    On a CUDA device the lower settings run bfloat16 tensor-core products
+    with float32 results; elsewhere the same rounded operands run through
+    exact float32 products. A name the JAX package does not take raises
+    ``ValueError`` and changes nothing.
     """
-    global _BACKEND
+    global _BACKEND, _PRECISION
     if backend not in ("auto", "fft", "matmul"):
         raise ValueError(f"Unknown stft backend: {backend}")
-    if precision not in (None, "highest"):
-        raise ValueError(f"Unsupported matmul precision: {precision!r}; "
-                         "the port's products are exact float32 ('highest')")
+    setting = None if precision is None else _precision.normalize(precision)
     _BACKEND = backend
+    if setting is not None:
+        _PRECISION = setting
 
 
 def get_stft_backend() -> str:
@@ -63,10 +74,14 @@ def dft_mats_device(n_fft: int, dtype: torch.dtype, device: Any = None) -> tuple
             device_table(("dft_sin_t", n_fft), lambda: S.T, device, dtype))
 
 
-def _dft_products(frames: torch.Tensor) -> tuple:
+def get_matmul_precision() -> str:
+    """The ``'matmul'`` route's setting: ``'highest'``, ``'high'`` or ``'default'``."""
+    return _PRECISION
+
+
+def _dft_products(frames: torch.Tensor, setting: str) -> tuple:
     Ct, St = dft_mats_device(frames.shape[-1], frames.dtype, frames.device)
-    with exact_f32():
-        return torch.matmul(frames, Ct), torch.matmul(frames, St)
+    return tuple(_precision.matmul(frames, M, setting, tensor_cores=True) for M in (Ct, St))
 
 
 def frames_rdft(frames: torch.Tensor) -> torch.Tensor:
@@ -75,7 +90,7 @@ def frames_rdft(frames: torch.Tensor) -> torch.Tensor:
     ``frames`` are real and already windowed.
     """
     if _resolved_backend() == "matmul":
-        re, im = _dft_products(frames)
+        re, im = _dft_products(frames, _PRECISION)
         return torch.complex(re, -im)
     return torch.fft.rfft(frames, dim=-1)
 
@@ -85,8 +100,13 @@ def frames_power_spectrum(frames: torch.Tensor) -> torch.Tensor:
 
     ``frames`` are real and already windowed.
     """
+    return power_spectrum_at(frames, _PRECISION)
+
+
+def power_spectrum_at(frames: torch.Tensor, setting: str) -> torch.Tensor:
+    """:func:`frames_power_spectrum` with the ``'matmul'`` route's products at ``setting``."""
     if _resolved_backend() == "matmul":
-        re, im = _dft_products(frames)
+        re, im = _dft_products(frames, setting)
         return re * re + im * im
     spec = torch.fft.rfft(frames, dim=-1)
     return spec.real.square() + spec.imag.square()

@@ -26,7 +26,8 @@ on chip, as the TPU kernel did, and spends the SM sparingly:
   per pass, made in float64 and rounded once;
 - the projection walks only each basis row's band of nonzeros
   (``basis_bands``), eight rows to a warp, with one sum per frame of the
-  tile in each lane's registers.
+  tile in each lane's registers, at the basis entry of ``precision``
+  (exact float32 unless asked; :mod:`~librosa_tpu_torch.ops.precision`).
 
 No frame matrix and no power spectrum touch device memory, and there is one
 launch per call. ``_fft_plan``, ``_frame_floats``, ``_smem_bytes`` and
@@ -45,11 +46,12 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import as_tensor, device_table, exact_f32
+from .._device import as_tensor, device_table
 from ..util.exceptions import ParameterError
 from ..util.utils import pad_last
 from . import _build
-from .fft import frames_power_spectrum
+from . import precision as _precision
+from .fft import get_matmul_precision, power_spectrum_at
 from .framing import frame_signal
 
 __all__ = [
@@ -248,7 +250,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i64, i32, i32, i32,
-                       ctypes.c_float, i32, p]
+                       ctypes.c_float, i32, i32, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -263,6 +265,7 @@ def stft_mel_fused(
     power: float = 2.0,
     center: bool = True,
     pad_mode: str = "constant",
+    precision: Any = None,
 ) -> torch.Tensor:
     """``basis @ |STFT(y)|**power`` as ``(..., n_out, T)``, in one kernel on the card.
 
@@ -274,19 +277,34 @@ def stft_mel_fused(
     over its band of nonzeros (:func:`basis_bands`, computed on the card
     without a synchronisation); a float32 row-major basis on ``y``'s device
     is read in place, any other is copied first.
+
+    ``precision`` is the JAX kernel's: None (exact float32), a name that
+    ``jax.lax.Precision`` takes, or a tuple ``(stage a, stage b, basis)``
+    of them (:func:`~librosa_tpu_torch.ops.precision.normalize3`). The JAX
+    kernel computes its DFT as two products (stages a and b) and the
+    projection as a third. Here the DFT is an FFT in shared memory, not a
+    product, so it is always exact: the tuple's first two entries are
+    checked and accepted, and have nothing to act on. The basis entry sets
+    the projection's arithmetic: ``'highest'`` exact float32 (the default,
+    whose bits do not change), ``'default'`` both operands rounded to
+    bfloat16 before each float32 multiply-add, ``'high'`` the three
+    products of their bfloat16 halves (``hi hi + hi lo + lo hi``).
     """
     return _fused(y, window, basis, None, n_fft=n_fft, hop_length=hop_length, power=power,
-                  center=center, pad_mode=pad_mode)
+                  center=center, pad_mode=pad_mode, precision=precision)
 
 
 def _fused(y: Any, window: Any, basis: Any, bands: Optional[torch.Tensor], *, n_fft: int,
-           hop_length: int, power: float, center: bool, pad_mode: str) -> torch.Tensor:
+           hop_length: int, power: float, center: bool, pad_mode: str,
+           precision: Any = None) -> torch.Tensor:
     """:func:`stft_mel_fused` with the basis's band table given (``None``: derived here)."""
     global launches
     y = as_tensor(y)
+    setting = _precision.normalize3(precision)[2]
     if y.device.type == "cpu":
         return stft_mel_reference(y, window, basis, n_fft=n_fft, hop_length=hop_length,
-                                  power=power, center=center, pad_mode=pad_mode)
+                                  power=power, center=center, pad_mode=pad_mode,
+                                  precision=setting)
     if y.device.type != "cuda":
         raise ParameterError(f"stft_mel_fused runs on cuda or cpu, not {y.device}")
     lead, sig_len = y.shape[:-1], y.shape[-1]
@@ -324,7 +342,7 @@ def _fused(y: Any, window: Any, basis: Any, bands: Optional[torch.Tensor], *, n_
             y2.data_ptr(), win.data_ptr(), twiddle.data_ptr(), bas.data_ptr(),
             bands.data_ptr(), out.data_ptr(), y2.shape[0], sig_len, n_frames, n_fft,
             hop_length, lpad, int(pad_mode == "reflect" and center), n_out, tt, float(power),
-            _smem_bytes(n_fft, hop_length, tt), stream,
+            _smem_bytes(n_fft, hop_length, tt), _precision.MODES[setting], stream,
         )
     if err != 0:
         raise RuntimeError(f"stft_mel kernel launch failed with CUDA error {err}")
@@ -338,14 +356,21 @@ def frames_power(y: torch.Tensor, window: torch.Tensor, *, n_fft: int, hop_lengt
 
     Pad by ``n_fft // 2`` a side where ``center`` (``pad_mode`` as
     :func:`~librosa_tpu_torch.util.utils.pad_last` takes it), frame with
-    ``unfold``, window, ``torch.fft.rfft``. ``y`` and ``window`` share a
+    ``unfold``, window, ``torch.fft.rfft`` (under the ``'matmul'`` backend
+    its products, at that route's precision). ``y`` and ``window`` share a
     device and a real dtype.
     """
+    return _frames_power(y, window, n_fft=n_fft, hop_length=hop_length, power=power,
+                         center=center, pad_mode=pad_mode, setting=get_matmul_precision())
+
+
+def _frames_power(y: torch.Tensor, window: torch.Tensor, *, n_fft: int, hop_length: int,
+                  power: float, center: bool, pad_mode: str, setting: str) -> torch.Tensor:
     lpad, _ = frame_geometry(y.shape[-1], n_fft=n_fft, hop_length=hop_length,
                              center=center)
     y = pad_last(y, lpad, lpad, mode=pad_mode)
-    pw = frames_power_spectrum(frame_signal(y, frame_length=n_fft, hop_length=hop_length)
-                               * window)
+    pw = power_spectrum_at(frame_signal(y, frame_length=n_fft, hop_length=hop_length)
+                           * window, setting)
     if power == 1:
         return pw.sqrt()
     if power != 2:
@@ -363,20 +388,25 @@ def stft_mel_reference(
     power: float = 2.0,
     center: bool = True,
     pad_mode: str = "constant",
+    precision: Any = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`stft_mel_fused`, on ``y``'s device.
 
     :func:`frames_power` (pad, ``unfold``, window, ``torch.fft.rfft``,
-    ``|.|**power``), then ``torch.matmul`` with the basis in full float32
-    (or in float64 for float64 input). ``pad_mode`` is one of
-    ``'constant'``, ``'reflect'``, ``'symmetric'``, ``'edge'`` or ``'wrap'``.
+    ``|.|**power``; the DFT always exact, as the kernel's), then the product
+    with the basis at ``precision``'s basis entry: ``torch.matmul`` in full
+    float32 (or in float64 for float64 input), or for ``'default'`` and
+    ``'high'`` the same rounding of both operands as the kernel's, through
+    exact float32 products (:func:`~librosa_tpu_torch.ops.precision.matmul`).
+    ``pad_mode`` is one of ``'constant'``, ``'reflect'``, ``'symmetric'``,
+    ``'edge'`` or ``'wrap'``.
     """
+    setting = _precision.normalize3(precision)[2]
     y = as_tensor(y)
     dtype = y.dtype if y.dtype in (torch.float32, torch.float64) else torch.float32
     y = y.to(dtype)
     win = _table(window, y.device, dtype)
     bas = _table(basis, y.device, dtype)
-    pw = frames_power(y, win, n_fft=n_fft, hop_length=hop_length, power=power,
-                      center=center, pad_mode=pad_mode)
-    with exact_f32():
-        return torch.matmul(bas, pw.transpose(-1, -2))
+    pw = _frames_power(y, win, n_fft=n_fft, hop_length=hop_length, power=power,
+                       center=center, pad_mode=pad_mode, setting=_precision.HIGHEST)
+    return _precision.matmul(bas, pw.transpose(-1, -2), setting)

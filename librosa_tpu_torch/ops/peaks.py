@@ -1,39 +1,114 @@
-"""Peak picking: the windowed candidacy tests as torch ops, the wait-spaced selection on the host.
+"""Peak picking: the windowed candidacy tests as torch ops, the wait-spaced selection as scans.
 
 A frame is a candidate when it equals the maximum of its window
 ``[n - pre_max, n + post_max)`` and reaches the mean of ``[n - pre_avg, n +
 post_avg)`` plus ``delta`` (windows clipped to the envelope). The selection
 is sequential: 'greedy' takes candidates left to right at least ``wait``
-frames apart; the DP takes the spaced set with the largest count or summed
-height. The JAX package runs the selection as a ``lax.scan`` over frames,
-vmapped over rows (``librosa_tpu/ops/peaks.py``); here it is a loop over
-frames on the host with numpy over all rows at once, since each step is a
-few comparisons per row. One envelope alone runs the float64 host loops of
-the JAX package (:func:`greedy_1d`, :func:`dp_1d`).
+frames apart (:func:`greedy_mask`); the DP takes the spaced set with the
+largest count or summed height (:func:`dp_values`, then :func:`dp_mask`
+on the host). The JAX package runs both scans as a ``lax.scan`` over
+frames, vmapped over rows (``librosa_tpu/ops/peaks.py``). Here, on a CUDA
+tensor, they launch the hand-written kernels of ``csrc/peak_scan.cu`` (one
+thread per row, built for ``sm_90a`` at first use by ``ops/_build.py``) or
+raise; on a CPU tensor they run the plain versions, loops over frames on
+the host with numpy over all rows at once (:func:`greedy_select`,
+:func:`dp_flags`), which the kernels equal bit for bit. One envelope alone
+runs the float64 host loops of the JAX package (:func:`greedy_1d`,
+:func:`dp_1d`).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["candidate_mask", "greedy_select", "dp_select", "greedy_1d", "dp_1d"]
+from ..util.exceptions import ParameterError
+from . import _build
+
+__all__ = ["candidate_mask", "greedy_mask", "dp_values", "dp_mask", "greedy_scan", "dp_scan",
+           "greedy_select", "dp_flags", "dp_select", "greedy_1d", "dp_1d", "chain_floor_ms",
+           "launches"]
+
+_MAX_WAIT = 2**31 - 1  # the kernel's countdown is a 32-bit int, as the JAX scan's
+
+#: Kernel launches so far: :func:`greedy_scan` and :func:`dp_scan` add one per call that
+#: reaches the card.
+launches = 0
 
 
 def candidate_mask(x: torch.Tensor, *, pre_max: int, post_max: int, pre_avg: int, post_avg: int,
                    delta: float) -> torch.Tensor:
-    """Candidates of ``x`` ``(rows, T)`` on its device: a boolean tensor of the same shape."""
+    """Candidates of ``x`` ``(..., T)`` on its device: a boolean tensor of the same shape."""
     wmax = F.pad(x, (pre_max, post_max - 1), value=float("-inf"))
     wmax = wmax.unfold(-1, pre_max + post_max, 1).amax(dim=-1)
     width = pre_avg + post_avg
     wsum = F.pad(x, (pre_avg, post_avg - 1)).unfold(-1, width, 1).sum(dim=-1)
-    count = F.pad(torch.ones_like(x[:1]), (pre_avg, post_avg - 1)).unfold(-1, width, 1).sum(dim=-1)
+    ones = torch.ones_like(x.reshape(-1, x.shape[-1])[:1])
+    count = F.pad(ones, (pre_avg, post_avg - 1)).unfold(-1, width, 1).sum(dim=-1)[0]
     return (x == wmax) & (x >= wsum / count + delta)
 
 
+def greedy_mask(x: torch.Tensor, *, pre_max: int, post_max: int, pre_avg: int, post_avg: int,
+                delta: float, wait: int) -> torch.Tensor:
+    """Greedy peak mask of ``x`` ``(..., T)`` over the last axis, a bool tensor on ``x``'s device.
+
+    :func:`candidate_mask`, then :func:`greedy_scan`: a candidate is taken
+    when at least ``wait`` frames have passed since the last taken one.
+    """
+    cand = candidate_mask(x, pre_max=pre_max, post_max=post_max, pre_avg=pre_avg,
+                          post_avg=post_avg, delta=delta)
+    return greedy_scan(cand.reshape(-1, cand.shape[-1]), wait).reshape(cand.shape)
+
+
+def dp_values(x: torch.Tensor, *, pre_max: int, post_max: int, pre_avg: int, post_avg: int,
+              delta: float, wait: int, count: bool) -> torch.Tensor:
+    """The backward DP's ``taken`` flags of ``x`` ``(..., T)``, a bool tensor on ``x``'s device.
+
+    :func:`candidate_mask`, then :func:`dp_scan` with gain 1 (``count``) or
+    ``x`` in float32: ``value[n] = max(value[n + 1], value[min(T, n + wait +
+    1)] + gain[n])`` where ``n`` is a candidate, taken only if strictly
+    larger. :func:`dp_mask` turns the flags into peaks. As in the JAX
+    package, summed heights that tie to float32 resolution may pick another
+    set than a float64 evaluation would.
+    """
+    cand = candidate_mask(x, pre_max=pre_max, post_max=post_max, pre_avg=pre_avg,
+                          post_avg=post_avg, delta=delta)
+    flat = cand.reshape(-1, cand.shape[-1])
+    gain = (torch.ones(flat.shape, dtype=torch.float32, device=x.device) if count
+            else x.reshape(flat.shape).to(torch.float32))
+    return dp_scan(flat, gain, wait).reshape(cand.shape)
+
+
+def dp_mask(taken: Any, wait: int) -> np.ndarray:
+    """Peaks from the DP's ``taken`` flags ``(..., T)``, on the host: numpy bool of that shape.
+
+    From frame 0, a taken frame is a peak and the walk jumps ``wait + 1``
+    frames; any other frame steps one.
+    """
+    taken = taken.cpu().numpy() if isinstance(taken, torch.Tensor) else np.asarray(taken)
+    flat = taken.reshape(-1, taken.shape[-1]).astype(bool)
+    T = flat.shape[1]
+    out = np.zeros(flat.shape, dtype=bool)
+    for r in range(flat.shape[0]):
+        n = 0
+        while n < T:
+            if flat[r, n]:
+                out[r, n] = True
+                n += wait + 1
+            else:
+                n += 1
+    return out.reshape(taken.shape)
+
+
 def greedy_select(cand: np.ndarray, wait: int) -> np.ndarray:
-    """Candidates taken left to right, each at least ``wait + 1`` frames after the last taken one."""
+    """Candidates taken left to right, each at least ``wait + 1`` frames after the last taken one.
+
+    The plain version of :func:`greedy_scan`: ``cand`` ``(rows, T)`` numpy bool.
+    """
     rows, T = cand.shape
     out = np.zeros_like(cand, dtype=bool)
     countdown = np.zeros(rows, dtype=np.int64)
@@ -44,12 +119,12 @@ def greedy_select(cand: np.ndarray, wait: int) -> np.ndarray:
     return out
 
 
-def dp_select(cand: np.ndarray, gain: np.ndarray, wait: int) -> np.ndarray:
-    """The spaced candidate set of largest total ``gain`` per row (float32, as the JAX scan).
+def dp_flags(cand: np.ndarray, gain: np.ndarray, wait: int) -> np.ndarray:
+    """The backward DP's ``taken`` flags per row, in float32 as the JAX scan.
 
-    Backward: ``value[n] = max(value[n + 1], value[min(T, n + wait + 1)] +
-    gain[n])`` where ``n`` is a candidate (taken only if strictly larger),
-    then forward from frame 0, jumping ``wait + 1`` frames after each taken one.
+    The plain version of :func:`dp_scan`: ``value[n] = max(value[n + 1],
+    value[min(T, n + wait + 1)] + gain[n])`` where ``n`` is a candidate
+    (taken only if strictly larger), ``cand`` and ``gain`` ``(rows, T)``.
     """
     rows, T = cand.shape
     values = np.zeros((rows, T + 1), dtype=np.float32)
@@ -61,16 +136,117 @@ def dp_select(cand: np.ndarray, gain: np.ndarray, wait: int) -> np.ndarray:
         take = cand[:, n] & (with_n > values[:, n + 1])
         taken[:, n] = take
         values[:, n] = np.where(take, with_n, values[:, n + 1])
-    out = np.zeros_like(taken)
-    for r in range(rows):
-        n = 0
-        while n < T:
-            if taken[r, n]:
-                out[r, n] = True
-                n += wait + 1
-            else:
-                n += 1
+    return taken
+
+
+def dp_select(cand: np.ndarray, gain: np.ndarray, wait: int) -> np.ndarray:
+    """The spaced candidate set of largest total ``gain`` per row: :func:`dp_flags`, then
+    :func:`dp_mask`."""
+    return dp_mask(dp_flags(cand, gain, wait), wait)
+
+
+def _kernel_refusal(cand: torch.Tensor, wait: int) -> None:
+    if cand.device.type != "cuda":
+        raise ParameterError(f"the peak_scan kernels run on cuda or cpu, not {cand.device}")
+    if cand.dtype != torch.bool or cand.ndim != 2:
+        raise ParameterError("the peak_scan kernels take (rows, T) bool candidates")
+    if not 0 <= wait <= _MAX_WAIT:
+        raise ParameterError(f"the peak_scan kernels take 0 <= wait <= {_MAX_WAIT}, not {wait}")
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load("peak_scan")
+    if lib.greedy_scan_launch.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.greedy_scan_launch.argtypes = [p, p, i64, i64, i32, p]
+        lib.dp_scan_launch.argtypes = [p, p, p, p, i64, i64, i64, p]
+        lib.peak_chain_probe_launch.argtypes = [i64, i64, i32, i32, p, p]
+        for fn in (lib.greedy_scan_launch, lib.dp_scan_launch, lib.peak_chain_probe_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def greedy_scan(cand: torch.Tensor, wait: int) -> torch.Tensor:
+    """The greedy selection over candidates ``cand`` ``(rows, T)`` bool: a bool tensor, same shape.
+
+    On a CUDA tensor this launches ``greedy_scan`` of ``csrc/peak_scan.cu``
+    or raises; on a CPU tensor it runs :func:`greedy_select`.
+    """
+    global launches
+    wait = int(wait)
+    if cand.device.type == "cpu":
+        return torch.from_numpy(greedy_select(cand.numpy(), wait))
+    _kernel_refusal(cand, wait)
+    cand = cand.contiguous()
+    out = torch.empty_like(cand)
+    if cand.numel() == 0:
+        return out
+    with torch.cuda.device(cand.device):
+        stream = torch.cuda.current_stream(cand.device).cuda_stream
+        err = _kernel_lib().greedy_scan_launch(cand.data_ptr(), out.data_ptr(), cand.shape[0],
+                                               cand.shape[1], wait, stream)
+    if err != 0:
+        raise RuntimeError(f"greedy_scan kernel launch failed with CUDA error {err}")
+    launches += 1
     return out
+
+
+def dp_scan(cand: torch.Tensor, gain: torch.Tensor, wait: int) -> torch.Tensor:
+    """The DP's ``taken`` flags over candidates ``cand`` ``(rows, T)`` bool with float32 ``gain``.
+
+    On a CUDA tensor this launches ``dp_scan`` of ``csrc/peak_scan.cu`` (its
+    values in a ``(rows, T + 1)`` float32 scratch) or raises; on a CPU
+    tensor it runs :func:`dp_flags`.
+    """
+    global launches
+    wait = int(wait)
+    if cand.device.type == "cpu":
+        return torch.from_numpy(dp_flags(cand.numpy(), gain.cpu().numpy(), wait))
+    _kernel_refusal(cand, wait)
+    if gain.dtype != torch.float32 or gain.shape != cand.shape or gain.device != cand.device:
+        raise ParameterError("dp_scan takes float32 gain of the candidates' shape and device")
+    cand, gain = cand.contiguous(), gain.contiguous()
+    taken = torch.empty_like(cand)
+    if cand.numel() == 0:
+        return taken
+    rows, T = cand.shape
+    values = torch.empty((rows, T + 1), dtype=torch.float32, device=cand.device)
+    with torch.cuda.device(cand.device):
+        stream = torch.cuda.current_stream(cand.device).cuda_stream
+        err = _kernel_lib().dp_scan_launch(cand.data_ptr(), gain.data_ptr(), values.data_ptr(),
+                                           taken.data_ptr(), rows, T, wait, stream)
+    if err != 0:
+        raise RuntimeError(f"dp_scan kernel launch failed with CUDA error {err}")
+    launches += 1
+    return taken
+
+
+def chain_floor_ms(rows: int, T: int, wait: int, *, dp: bool, device: torch.device,
+                   repeats: int = 10) -> float:
+    """The least time of ``T`` dependent steps of a scan's carry on ``rows`` rows, in ms.
+
+    Launches the probe of ``csrc/peak_scan.cu`` that runs only the
+    countdown (``dp`` False) or the DP's compare and select, on flags made
+    in registers, and returns its best time of ``repeats`` by CUDA events.
+    A measurement for the bound: it adds nothing to :data:`launches`.
+    """
+    fn = _kernel_lib().peak_chain_probe_launch
+    out = torch.empty(rows, dtype=torch.float32, device=device)
+    best = float("inf")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        for _ in range(repeats + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            err = fn(rows, T, int(wait), int(dp), out.data_ptr(), stream.cuda_stream)
+            end.record(stream)
+            if err != 0:
+                raise RuntimeError(f"peak_scan chain probe launch failed with CUDA error {err}")
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError("peak_scan chain probe wrote non-finite values")
+    return best
 
 
 def greedy_1d(x: np.ndarray, *, pre_max: int, post_max: int, pre_avg: int, post_avg: int,

@@ -191,9 +191,11 @@ def peak_pick(x: Any, *, pre_max: int, post_max: int, pre_avg: int, post_avg: in
     'greedy' takes candidates left to right, at least ``wait`` frames
     apart; 'dp_count' and 'dp_value' take the spaced set with the most
     peaks or the largest summed height. One envelope runs in float64 on the
-    host as the JAX package runs it; several run their candidacy tests in
-    float32 as torch ops on ``x``'s device and the selection as a host loop
-    over the frames, all rows at once (``ops/peaks.py``). Returns numpy.
+    host as the JAX package runs it; several run in float32 on ``x``'s
+    device, as the JAX package runs them: the candidacy tests as torch ops,
+    the selection as a scan over frames (``ops/peaks.py``: on the card the
+    ``peak_scan`` kernels, on the CPU their plain loops), the DP's walk
+    over its flags on the host. Returns numpy.
     """
     if sparse and np.ndim(x) != 1:
         raise ParameterError("sparse=True (default) does not support "
@@ -217,13 +219,11 @@ def peak_pick(x: Any, *, pre_max: int, post_max: int, pre_avg: int, post_avg: in
     rows = int(np.prod(shape[:-1], dtype=np.int64))
     if rows > 1:
         flat = as_tensor(xt).reshape(rows, shape[-1]).to(torch.float32)
-        cand = _peaks.candidate_mask(flat, delta=float(delta), **win).cpu().numpy()
         if method == "greedy":
-            out = _peaks.greedy_select(cand, wait)
+            out = _peaks.greedy_mask(flat, delta=float(delta), wait=wait, **win).cpu().numpy()
         else:
-            gain = np.ones(cand.shape, np.float32) if method == "dp_count" else \
-                flat.cpu().numpy()
-            out = _peaks.dp_select(cand, gain, wait)
+            out = _peaks.dp_mask(_peaks.dp_values(flat, delta=float(delta), wait=wait,
+                                                  count=method == "dp_count", **win), wait)
     else:
         row = _host(xt).reshape(rows, shape[-1]).astype(np.float64)
         out = np.zeros(row.shape, dtype=bool)
@@ -652,21 +652,33 @@ def fill_off_diagonal(x: Any, *, radius: float, value: float = 0) -> None:
     rows) from ``min(nx, ny) - radius`` on are filled as well. ``x`` is a
     numpy array or a tensor, changed where it lies.
     """
-    nx, ny = x.shape[-2:]
+    outside = ~band_mask(*x.shape[-2:], radius=radius)
+    if isinstance(x, torch.Tensor):
+        outside = torch.from_numpy(outside).to(x.device)
+    x[..., outside] = value
+
+
+def band_mask(nx: int, ny: int, *, radius: float) -> np.ndarray:
+    """The Sakoe-Chiba band of an ``(nx, ny)`` matrix as numpy bool, True inside.
+
+    Cell ``(i, j)`` is inside when ``|i - j| < radius``; a float ``radius``
+    below 1 is a fraction of ``min(nx, ny)``. Of a rectangle the columns (or
+    rows) from ``min(nx, ny) - radius`` on are outside, as
+    :func:`fill_off_diagonal` fills them. As in the JAX package it is a name
+    of this module only, not of the ``util`` namespace.
+    """
     shortest = min(nx, ny)
     if isinstance(radius, float) and radius < 1:
         radius = int(radius * shortest)
     radius = int(radius)
     i = np.arange(nx)[:, None]
     j = np.arange(ny)[None, :]
-    outside = (j - i >= radius) | (i - j >= radius)
+    inside = (j - i < radius) & (i - j < radius)
     if nx < ny:
-        outside[:, shortest - radius:] = True
+        inside[:, shortest - radius:] = False
     elif ny < nx:
-        outside[shortest - radius:, :] = True
-    if isinstance(x, torch.Tensor):
-        outside = torch.from_numpy(outside).to(x.device)
-    x[..., outside] = value
+        inside[shortest - radius:, :] = False
+    return inside
 
 
 def axis_sort(S: Any, *, axis: int = -1, index: bool = False,

@@ -16,6 +16,7 @@ values in brackets, lowest over the lengths):
   before the switch existed (``torch.fft`` over scipy's fast length).
 """
 
+import jax
 import numpy as np
 import pytest
 import scipy.fft
@@ -132,8 +133,18 @@ def test_backend_surface_matches_jax():
         with pytest.raises(ValueError, match="Unknown stft backend"):
             fn("cufft")
     fft.set_stft_backend("auto", precision="highest")
-    with pytest.raises(ValueError, match="Unsupported matmul precision"):
+    # the port takes the names jax.lax.Precision takes, refuses the rest, and a refusal
+    # changes neither the backend nor the stored precision
+    with pytest.raises(ValueError, match="not a valid precision"):
+        fft.set_stft_backend("matmul", precision="cufft")
+    with pytest.raises(ValueError):
+        jax.lax.Precision("cufft")
+    assert fft.get_stft_backend() == "auto" and fft.get_matmul_precision() == "highest"
+    try:
         fft.set_stft_backend("matmul", precision="high")
+        assert fft.get_matmul_precision() == jax.lax.Precision("high").name.lower() == "high"
+    finally:
+        fft.set_stft_backend("auto", precision="highest")
     assert fft.get_stft_backend() == "auto"
     Ct, St = fft.dft_mats_device(64, torch.float64)
     assert tuple(Ct.shape) == (64, 33) and Ct.dtype == torch.float64

@@ -11,7 +11,9 @@ Floors, each below the value measured on these inputs:
 - ``phase_vocoder``: 110 dB complex (118.9-129.7 measured: the float32
   running sum of the phase advances in another order), 130 dB on the
   magnitudes (142.2-144.7);
-- ``time_stretch``, ``pitch_shift``: 105 dB (117.4-122.7);
+- ``time_stretch``, ``pitch_shift``: 105 dB (117.4-122.7), also over a
+  stretch of exact silence, whose zero bins must have phase 0 whatever the
+  sign of their zeros;
 - ``preemphasis`` 130 dB (139.4), ``deemphasis`` 125 dB, the golden's
   (133.5-136.7: the doubling scan against XLA's associative scan), and its
   final state, one sample a channel, 1e-5 relative (1.2e-6 measured);
@@ -128,6 +130,40 @@ def test_pitch_shift_matches_jax(kw):
     assert _snr(got, lt.effects.pitch_shift(y, sr=SR, **kw)) >= STRETCH_SNR_DB
     with pytest.raises(L.ParameterError):
         L.effects.pitch_shift(y, sr=SR, n_steps=1, bins_per_octave=0)
+
+
+def _silent_stretch(n=3 * SR):
+    """Noise over a tone, with 11025 samples of exact silence: whole frames of zeros."""
+    y = _signal(n)
+    y[:, SR:SR + SR // 2] = 0
+    return y
+
+
+@pytest.mark.parametrize("rate", [0.7, 1.3])
+def test_time_stretch_over_exact_silence_matches_jax(rate):
+    y = _silent_stretch()
+    got = L.effects.time_stretch(y, rate=rate)
+    assert _snr(got, lt.effects.time_stretch(y, rate=rate)) >= STRETCH_SNR_DB
+
+
+def test_pitch_shift_over_exact_silence_matches_jax():
+    y = _silent_stretch()
+    got = L.effects.pitch_shift(y, sr=SR, n_steps=2, res_type="fft")
+    assert _snr(got, lt.effects.pitch_shift(y, sr=SR, n_steps=2, res_type="fft")) >= STRETCH_SNR_DB
+
+
+def test_phase_vocoder_takes_exact_zero_bins_as_phase_zero():
+    # an FFT may return -0.0 as the real part of a silent bin; torch.angle gives pi there,
+    # and the running phase sum would carry it into every later frame
+    D = L.stft(torch.from_numpy(_silent_stretch()))
+    zero = D == 0
+    assert int(zero.sum()) > 1000
+    neg_zero = torch.complex(torch.full_like(D.real, -0.0), torch.zeros_like(D.real))
+    D_neg = torch.where(zero, neg_zero, D)
+    assert bool(torch.signbit(D_neg.real[zero]).all())
+    assert float(torch.angle(D_neg[zero]).abs().min()) == pytest.approx(np.pi)
+    for rate in (0.7, 1.3):
+        assert torch.equal(L.phase_vocoder(D_neg, rate=rate), L.phase_vocoder(D, rate=rate))
 
 
 @pytest.mark.parametrize("align_zeros", [False, True])

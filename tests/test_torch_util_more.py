@@ -1,11 +1,12 @@
 """The port's last ``util`` helpers against the JAX package on the CPU.
 
 ``cyclic_gradient``, ``stack``, ``count_unique``, ``is_unique``,
-``buf_to_float``, ``interp_broadcast``, ``valid_audio`` and
-``valid_intervals`` on the same seeded numpy inputs. All of them are exact
-arithmetic on the same floats (a difference of two shifts halved, copies,
-a sort and its change points, integer scaling, the same numpy and scipy
-interpolation on the host), so each is held to equality (measured: equal).
+``buf_to_float``, ``interp_broadcast``, ``valid_audio``,
+``valid_intervals`` and ``utils.band_mask`` on the same seeded numpy
+inputs. All of them are exact arithmetic on the same floats (a difference
+of two shifts halved, copies, a sort and its change points, integer
+scaling, the same numpy and scipy interpolation on the host, integer
+comparisons), so each is held to equality (measured: equal).
 The ``ParameterError`` cases are those both packages raise.
 """
 
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 import librosa_tpu as lt
+from librosa_tpu.util.utils import band_mask as jax_band_mask
 
 import librosa_tpu_torch as L
 
@@ -120,3 +122,15 @@ def test_valid_intervals():
             L.util.valid_intervals(bad)
         with pytest.raises(lt.util.ParameterError):
             lt.util.valid_intervals(bad)
+
+
+@pytest.mark.parametrize("nx,ny", [(9, 9), (7, 12), (12, 7), (1, 5)])
+@pytest.mark.parametrize("radius", [1, 3, 0.25, 0.5, 0.99])
+def test_band_mask(nx, ny, radius):
+    got = L.util.utils.band_mask(nx, ny, radius=radius)
+    assert isinstance(got, np.ndarray) and got.dtype == bool
+    _equal(got, jax_band_mask(nx, ny, radius=radius))
+    # the cells fill_off_diagonal fills are the band's outside
+    x = np.ones((nx, ny), np.float32)
+    L.util.fill_off_diagonal(x, radius=radius)
+    _equal(x != 0, got)
