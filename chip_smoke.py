@@ -181,9 +181,13 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    (``sparse=False``) on the main buffer's onset envelope for 'greedy',
    'dp_count' and 'dp_value' at wait 0, 10 and 300, the ``peak_scan``
    kernels (``csrc/peak_scan.cu``) bit for bit against their plain loops on
-   every launch of that path and on ragged small cases; times of every
-   setting and scan beside the plain versions, the bounds and the scans'
-   chain probe;
+   every launch of that path (greedy 9, of them 6 walks over the DP's flags;
+   dp 6) and on ragged small cases (T 1-2**21, waits at the ring's ends and
+   past its largest, the scratch route); times of every setting and scan
+   beside the plain versions and the bounds, the scans at waits 0, 1, 10 and
+   300 on the envelope and on a batch of 256 shifted copies, beside the
+   DP's scratch route (a thread a row) on the same inputs, the walk, countdown and DP chain probes and
+   an empty launch; ``onset_detect`` end to end on both;
 5. holds the staged-copy kernels (``csrc/staged_probe.cu``) against their
    plain versions in every variant of the diagnostics, at their default
    geometry, with the pipeline at WRAP 128 and 1024, and a strided row
@@ -3910,14 +3914,27 @@ def track_snr_min(torch, got, want) -> float:
 
 
 def scan_cases(rng):
-    """(label, cand (rows, T) bool, gain float32, wait): ragged rows and lengths, exact ties."""
+    """(label, cand (rows, T) bool, gain float32, wait): ragged rows and lengths, exact ties, waits
+    at the ends of a ring of 16 and 64 and past the row; one row of 2**21 frames (65 greedy and
+    1024 DP stages); and rows of 70000 frames at the largest ring and past it (the scratch route).
+    """
     cases = []
-    for rows, T in ((1, 1), (1, 7), (16, 1), (33, 1000), (70, 257), (5, 8193)):
-        for wait in (0, 1, 5, T + 3):
+    for rows, T in ((1, 1), (1, 7), (3, 31), (3, 32), (3, 33), (16, 1), (33, 1000), (70, 257),
+                    (5, 8193)):
+        for wait in (0, 1, 5, 6, 7, 14, 15, 62, 63, T + 3, 2**31 - 1):
             cand = rng.rand(rows, T) < 0.3
             gain = (np.floor(rng.rand(rows, T) * 8) / 8).astype(np.float32)  # ties by design
             cases.append((f"rows {rows} T {T} wait {wait}", cand, gain, wait))
+    for rows, T, wait in ((1, 2**21, 10), (2, 70000, 32766), (2, 70000, 32767), (2, 70000, 40000)):
+        cand = rng.rand(rows, T) < 0.3
+        # eighths sum exactly in float32 up to 2**21, so no tie breaks by rounding
+        gain = (np.floor(rng.rand(rows, T) * 8) / 8).astype(np.float32)
+        cases.append((f"rows {rows} T {T} wait {wait}", cand, gain, wait))
     return cases
+
+
+SCAN_TIME_WAITS = (0, 1, 10, 300)  # 1 is onset_detect's default at 22050 Hz, hop 512
+SCAN_BATCH = 256                   # rows of the batch of shifted copies of the envelope
 
 
 def precision_scan_phase(torch, L, device, y, win, mel_basis) -> dict:
@@ -3959,9 +3976,10 @@ def precision_scan_phase(torch, L, device, y, win, mel_basis) -> dict:
           f"{SCAN_METHODS} at wait {SCAN_WAITS}; launches {counts}, peak_scan counter "
           f"{peaks.launches}")
     n_scans = len(SCAN_WAITS)
+    # greedy: one a wait for 'greedy', and the walk of each DP run over its flags
     if counts != {"stft_mel": len(DIAL_SETTINGS) + 1, "db_scale": 0,
-                  "peak_scan_greedy": n_scans, "peak_scan_dp": 2 * n_scans} \
-            or peaks.launches != 3 * n_scans:
+                  "peak_scan_greedy": 3 * n_scans, "peak_scan_dp": 2 * n_scans} \
+            or peaks.launches != 5 * n_scans:
         raise AssertionError(f"phase 4p launched {counts} (peak_scan counter {peaks.launches})")
     if not torch.equal(k_out["highest"], k_none):
         raise AssertionError("K1 at 'highest' is not bit-equal to a call with no precision")
@@ -4055,18 +4073,21 @@ def precision_scan_phase(torch, L, device, y, win, mel_basis) -> dict:
         fft.set_stft_backend("auto", precision="highest")
     del frames_d, pw64
 
-    # the scans: each launch of the path against its plain loop, bit for bit
+    # the scans: each launch of the path against its plain loop, bit for bit; the DP's walks
+    # (greedy launches n_scans onwards) take exactly the DP's flags
     for args, _ in g_spy.calls:
         cand, wait = args
         got = peaks.greedy_scan(cand, wait).cpu().numpy()
         if not np.array_equal(got, peaks.greedy_select(cand.cpu().numpy(), wait)):
             raise AssertionError(f"greedy_scan at wait {wait}: not the plain loop's mask")
-    for args, _ in d_spy.calls:
+    for j, (args, _) in enumerate(d_spy.calls):
         cand, gain, wait = args
-        got = peaks.dp_scan(cand, gain, wait).cpu().numpy()
-        if not np.array_equal(got, peaks.dp_flags(cand.cpu().numpy(), gain.cpu().numpy(),
-                                                  wait)):
+        want = peaks.dp_flags(cand.cpu().numpy(), gain.cpu().numpy(), wait)
+        if not np.array_equal(peaks.dp_scan(cand, gain, wait).cpu().numpy(), want):
             raise AssertionError(f"dp_scan at wait {wait}: not the plain loop's flags")
+        walked, walk_wait = g_spy.calls[n_scans + j][0]
+        if walk_wait != wait or not np.array_equal(walked.cpu().numpy(), want):
+            raise AssertionError(f"the DP's walk at wait {wait} did not take the DP's flags")
     for i, wait in enumerate(SCAN_WAITS):
         cand = g_spy.calls[i][0][0].cpu().numpy()
         if not np.array_equal(picks["greedy", wait], peaks.greedy_select(cand, wait)):
@@ -4078,32 +4099,78 @@ def precision_scan_phase(torch, L, device, y, win, mel_basis) -> dict:
                 raise AssertionError(f"onset_detect {method} at wait {wait}: not the plain loop's")
     rng = np.random.RandomState(16)
     small = scan_cases(rng)
+    routes = {}
+    t0 = time.perf_counter()
     for label, cand, gain, wait in small:
         c_d, g_d = torch.from_numpy(cand).to(device), torch.from_numpy(gain).to(device)
+        dp_route = peaks.dp_route(cand.shape[1], wait)
+        routes[dp_route] = routes.get(dp_route, 0) + 1
         if not (np.array_equal(peaks.greedy_scan(c_d, wait).cpu().numpy(),
                                peaks.greedy_select(cand, wait))
                 and np.array_equal(peaks.dp_scan(c_d, g_d, wait).cpu().numpy(),
                                    peaks.dp_flags(cand, gain, wait))):
-            raise AssertionError(f"peak_scan {label}: not the plain loops' bits")
-    print(f"peak_scan: every launch of the path ({len(g_spy.calls)} greedy, {len(d_spy.calls)} "
-          f"dp) and {len(small)} small cases (rows 1-70, T 1-8193, wait 0 to T + 3, tied "
-          f"gains) bit-equal to the plain loops; peaks per method and wait: "
+            raise AssertionError(f"peak_scan {label} ({dp_route} route): not the plain loops' "
+                                 "bits")
+    if routes.get("scratch", 0) != 2:
+        raise AssertionError(f"the small cases took the DP's routes {routes}")
+    print(f"peak_scan: every launch of the path ({len(g_spy.calls)} greedy, of them "
+          f"{len(g_spy.calls) - n_scans} walks over the DP's flags; {len(d_spy.calls)} dp) and "
+          f"{len(small)} small cases (rows 1-70, T 1-2**21, wait 0 to 2**31 - 1, tied gains; DP "
+          f"routes {routes}) bit-equal to the plain loops, {time.perf_counter() - t0:.1f} s; "
+          "peaks per method and wait: "
           + ", ".join(f"{m} {w}: {int(v.sum())}" for (m, w), v in picks.items()))
 
-    # times: each kernel at each wait beside its plain loop (host clock), bound and chain
+    # the batch: SCAN_BATCH rows of the envelope shifted, through onset_detect once per method
+    env_b = torch.cat([torch.roll(env, 97 * k, dims=-1) for k in range(SCAN_BATCH // rows)])
+    with CallSpy(peaks, "greedy_scan", keep=3) as gb_spy, \
+            CallSpy(peaks, "dp_scan", keep=2) as db_spy:
+        for method in SCAN_METHODS:
+            L.onset.onset_detect(onset_envelope=env_b, sr=SR, sparse=False, method=method, wait=10)
+    shapes = {f"{rows}x{env.shape[-1]}": (g_spy.calls[0][0][0], d_spy.calls[n_scans][0][1]),
+              f"{SCAN_BATCH}x{env.shape[-1]}": (gb_spy.calls[0][0][0], db_spy.calls[-1][0][1])}
+
+    # times: each kernel at each wait beside its plain loop (host clock), the DP's scratch route
+    # (a thread a row, its values in device memory) on the same inputs, the probes and the
+    # launch floor
+    floor_ms = peaks.launch_floor_ms(device)
+    by_shape = {}
+    for label, (cand, gain) in shapes.items():
+        n_rows, T = cand.shape
+        host_c, host_g = cand.cpu().numpy(), gain.cpu().numpy()
+        rows_out = {}
+        for wait in SCAN_TIME_WAITS:
+            walk = peaks.walk_floor_ms(cand, wait)
+            row = {
+                "greedy_ms": time_ms(torch, lambda: peaks.greedy_scan(cand, wait), 20),
+                "dp_ms": time_ms(torch, lambda: peaks.dp_scan(cand, gain, wait), 20),
+                "dp_route": peaks.dp_route(T, wait),
+                "dp_scratch_route_ms": time_ms(
+                    torch, lambda: peaks._dp_launch(cand, gain, wait, "scratch"), 5),
+                "greedy_plain_ms": 1e3 * best_s(lambda: peaks.greedy_select(host_c, wait), 2),
+                "dp_plain_ms": 1e3 * best_s(lambda: peaks.dp_flags(host_c, host_g, wait), 2),
+                "walk_probe_ms": walk["ms"], "walk_steps": walk["steps"],
+                "takes": walk["takes"],
+                "countdown_probe_ms": peaks.chain_floor_ms(n_rows, T, wait, dp=False,
+                                                           device=device),
+                "dp_chain_probe_ms": peaks.chain_floor_ms(n_rows, T, wait, dp=True,
+                                                          device=device),
+            }
+            rows_out[str(wait)] = row
+            print(f"peak_scan on {label} at wait {wait}: greedy {row['greedy_ms']:.4f} ms (walk "
+                  f"probe {row['walk_probe_ms']:.4f}, {row['walk_steps']} steps on the slowest "
+                  f"row, {row['takes']} takes; countdown probe {row['countdown_probe_ms']:.4f}), "
+                  f"dp {row['dp_ms']:.4f} ms by the {row['dp_route']} route (scratch route "
+                  f"{row['dp_scratch_route_ms']:.4f}; chain probe "
+                  f"{row['dp_chain_probe_ms']:.4f}); plain loops {row['greedy_plain_ms']:.4f} / "
+                  f"{row['dp_plain_ms']:.4f} ms (host clock)")
+        by_shape[label] = rows_out
+    print(f"peak_scan: an empty launch {floor_ms:.4f} ms")
+
+    at_main = by_shape[f"{rows}x{env.shape[-1]}"]
     T = env.shape[-1]
     scans = {}
-    for name, calls in (("peak_scan_greedy", g_spy.calls), ("peak_scan_dp", d_spy.calls)):
-        dp = name == "peak_scan_dp"
-        ms, plain_ms, chain = {}, {}, {}
-        for i, wait in enumerate(SCAN_WAITS):
-            args = calls[n_scans + i][0] if dp else calls[i][0]  # dp_value's gains for the DP
-            host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
-            fn = peaks.dp_scan if dp else peaks.greedy_scan
-            plain = peaks.dp_flags if dp else peaks.greedy_select
-            ms[wait] = time_ms(torch, lambda: fn(*args), 20)
-            plain_ms[wait] = 1e3 * best_s(lambda: plain(*host), 2)
-            chain[wait] = peaks.chain_floor_ms(rows, T, wait, dp=dp, device=device)
+    for name, dp in (("peak_scan_greedy", False), ("peak_scan_dp", True)):
+        key = "dp" if dp else "greedy"
         moved = rows * T * (1 + 4 + 1 if dp else 1 + 1)  # flags (and gains) in, flags out
         b_ms = 1e3 * moved / H100_HBM_BYTES_S
         o_ms = 1e3 * rows * T * (2 if dp else 3) / H100_F32_FLOP_S
@@ -4113,22 +4180,27 @@ def precision_scan_phase(torch, L, device, y, win, mel_basis) -> dict:
                          "replaced)" if dp else "librosa_tpu/ops/peaks.py:99 greedy_mask (an XLA "
                          "scan: no Pallas kernel replaced)"),
             "launches": counts[name], "launches_by_path": {"precision_scans": counts[name]},
-            "max_abs_err": 0.0, "ms": ms[10], "plain_ms": plain_ms[10],
+            "max_abs_err": 0.0, "ms": at_main["10"][f"{key}_ms"],
+            "plain_ms": at_main["10"][f"{key}_plain_ms"],
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": None, "chain_bound_ms": chain[10],
-            "by_wait": {str(w): {"ms": ms[w], "plain_ms": plain_ms[w], "chain_bound_ms": chain[w]}
-                        for w in SCAN_WAITS},
+            "library_ms": None,
+            "chain_bound_ms": at_main["10"]["dp_chain_probe_ms" if dp else "walk_probe_ms"],
+            "launch_floor_ms": floor_ms,
+            "by_shape_and_wait": {
+                label: {w: {k: v for k, v in r.items()
+                            if k.startswith(key) or k in (
+                                ("dp_chain_probe_ms",) if dp else
+                                ("walk_probe_ms", "walk_steps", "takes", "countdown_probe_ms"))}
+                        for w, r in rows_out.items()}
+                for label, rows_out in by_shape.items()},
             "shape": [rows, T],
         }
-        print(f"{name} on {(rows, T)}: " + ", ".join(
-            f"wait {w} kernel {ms[w]:.4f} ms, plain loop {plain_ms[w]:.4f} ms (host clock), "
-            f"chain {chain[w]:.4f} ms" for w in SCAN_WAITS)
-            + f"; bound {max(b_ms, o_ms):.6f} ms ({scans[name]['bound_by']})")
-    detect_s = {m: best_s(lambda: L.onset.onset_detect(onset_envelope=env, sr=SR, sparse=False,
-                                                       method=m, wait=10), 3)
-                for m in SCAN_METHODS}
-    print("onset_detect(sparse=False, wait=10) on the card end to end (s, host clock): "
-          + ", ".join(f"{m} {v:.6f}" for m, v in detect_s.items()))
+    detect_s = {}
+    for label, e in ((f"{rows}x{T}", env), (f"{SCAN_BATCH}x{T}", env_b)):
+        detect_s[label] = {m: best_s(lambda: L.onset.onset_detect(
+            onset_envelope=e, sr=SR, sparse=False, method=m, wait=10), 3) for m in SCAN_METHODS}
+        print(f"onset_detect(sparse=False, wait=10) on {label} end to end (s, host clock): "
+              + ", ".join(f"{m} {v:.6f}" for m, v in detect_s[label].items()))
     return {"launches": counts, "dial": dial, "matmul_route": route, "scans": scans,
             "onset_detect_s": detect_s}
 

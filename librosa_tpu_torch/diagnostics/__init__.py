@@ -10,4 +10,7 @@ than the path's. ``python -m librosa_tpu_torch.diagnostics.path_enhance_routes``
 times routes for ``segment.path_enhance``'s convolutions.
 ``python -m librosa_tpu_torch.diagnostics.rfft_batches`` shows whether
 ``torch.fft.rfft`` gives a frame the same bits in a smaller batch.
+``python -m librosa_tpu_torch.diagnostics.peak_scan_parent --parent PATH``
+times the ``peak_scan`` kernels beside an earlier build of their source on
+the path's inputs.
 """

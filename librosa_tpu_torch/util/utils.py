@@ -194,8 +194,10 @@ def peak_pick(x: Any, *, pre_max: int, post_max: int, pre_avg: int, post_avg: in
     host as the JAX package runs it; several run in float32 on ``x``'s
     device, as the JAX package runs them: the candidacy tests as torch ops,
     the selection as a scan over frames (``ops/peaks.py``: on the card the
-    ``peak_scan`` kernels, on the CPU their plain loops), the DP's walk
-    over its flags on the host. Returns numpy.
+    ``peak_scan`` kernels, on the CPU their plain loops). The DP's walk over
+    its flags is the greedy selection of those flags: on the card the
+    greedy kernel runs it and only the peaks are copied back; on the CPU it
+    is a host loop. Returns numpy.
     """
     if sparse and np.ndim(x) != 1:
         raise ParameterError("sparse=True (default) does not support "
