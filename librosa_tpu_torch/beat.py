@@ -22,6 +22,7 @@ from .core.spectrum import istft, stft
 from .feature.rhythm import tempo as _tempo
 from .onset import onset_strength
 from .ops import beat_dp as _dp
+from .util import profiling
 from .util import utils as util
 from .util.exceptions import ParameterError
 
@@ -111,7 +112,8 @@ def _beat_tracker(onset_envelope: np.ndarray, bpm: np.ndarray, frame_rate: float
         raise ParameterError(f"Invalid bpm shape={bpm.shape} does not match "
                              f"onset envelope shape={onset_envelope.shape}")
     frames_per_beat = np.round(frame_rate * 60.0 / bpm)
-    localscore = _local_score(onset_envelope, frames_per_beat)
+    with profiling.annotate("beat.local_score"):
+        localscore = _local_score(onset_envelope, frames_per_beat)
     tv = frames_per_beat.shape[-1] > 1
 
     if localscore.ndim == 1:
@@ -126,16 +128,18 @@ def _beat_tracker(onset_envelope: np.ndarray, bpm: np.ndarray, frame_rate: float
         fpb = torch.as_tensor(np.array(fpb, dtype=np.float32).reshape(ls.shape[0], -1),
                               device=device)
         backlink, cumscore = _dp.beat_dp(ls, fpb, tightness)
-        backlink = backlink.cpu().numpy()
-        cumscore = cumscore.cpu().numpy().astype(np.float64)
+        backlink = util._host(backlink)
+        cumscore = util._host(cumscore).astype(np.float64)
 
-    tails = _last_beats(cumscore)
-    beats = np.zeros(backlink.shape, dtype=bool)
-    for r, n in enumerate(tails):
-        while n >= 0:
-            beats[r, n] = True
-            n = int(backlink[r, n])
-    return _trim_beats(localscore, beats.reshape(localscore.shape), trim)
+    with profiling.annotate("beat.backtrack"):
+        tails = _last_beats(cumscore)
+        beats = np.zeros(backlink.shape, dtype=bool)
+        for r, n in enumerate(tails):
+            while n >= 0:
+                beats[r, n] = True
+                n = int(backlink[r, n])
+    with profiling.annotate("beat.trim"):
+        return _trim_beats(localscore, beats.reshape(localscore.shape), trim)
 
 
 def beat_track(*, y: Any = None, sr: float = 22050, onset_envelope: Optional[Any] = None,
@@ -149,37 +153,38 @@ def beat_track(*, y: Any = None, sr: float = 22050, onset_envelope: Optional[Any
     off the period; ``trim`` drops weak beats at the ends. ``sparse`` gives
     beat positions in ``units`` (1-d input only), else a boolean mask.
     """
-    if onset_envelope is None:
-        if y is None:
-            raise ParameterError("beat tracking needs a signal (y) or an onset envelope")
-        onset_envelope = onset_strength(aggregate=np.median, hop_length=hop_length, sr=sr, y=y)
-    env_t = as_tensor(onset_envelope)
-    envelope = util._host(env_t)
-    if sparse and envelope.ndim != 1:
-        raise ParameterError(
-            f"frame-index (sparse) output is single-channel only; this envelope has "
-            f"{envelope.ndim} dimensions — set sparse=False or downmix first")
-    if not envelope.any():
-        if sparse:
-            return 0.0, np.array([], dtype=int)
-        return np.zeros(envelope.shape[:-1], dtype=float), np.zeros_like(envelope, dtype=bool)
-    if bpm is None:
-        bpm = _tempo(onset_envelope=env_t, sr=sr, hop_length=hop_length, start_bpm=start_bpm,
-                     prior=prior)
-    tempi = np.atleast_1d(util._host(bpm))
-    tempi = tempi.reshape(tempi.shape + (1,) * (envelope.ndim - tempi.ndim))
-    beat_mask = _beat_tracker(envelope, tempi, float(sr) / hop_length, tightness, trim,
-                              env_t.device)
-    if not sparse:
-        return bpm, beat_mask
-    frames = np.flatnonzero(beat_mask)
-    if units == "frames":
-        return bpm, frames
-    if units == "samples":
-        return bpm, frames_to_samples(frames, hop_length=hop_length)
-    if units == "time":
-        return bpm, frames_to_time(frames, hop_length=hop_length, sr=sr)
-    raise ParameterError(f"units must be frames, samples, or time; got {units!r}")
+    with profiling.annotate("beat_track"):
+        if onset_envelope is None:
+            if y is None:
+                raise ParameterError("beat tracking needs a signal (y) or an onset envelope")
+            onset_envelope = onset_strength(aggregate=np.median, hop_length=hop_length, sr=sr, y=y)
+        env_t = as_tensor(onset_envelope)
+        envelope = util._host(env_t)
+        if sparse and envelope.ndim != 1:
+            raise ParameterError(
+                f"frame-index (sparse) output is single-channel only; this envelope has "
+                f"{envelope.ndim} dimensions — set sparse=False or downmix first")
+        if not envelope.any():
+            if sparse:
+                return 0.0, np.array([], dtype=int)
+            return np.zeros(envelope.shape[:-1], dtype=float), np.zeros_like(envelope, dtype=bool)
+        if bpm is None:
+            bpm = _tempo(onset_envelope=env_t, sr=sr, hop_length=hop_length, start_bpm=start_bpm,
+                         prior=prior)
+        tempi = np.atleast_1d(util._host(bpm))
+        tempi = tempi.reshape(tempi.shape + (1,) * (envelope.ndim - tempi.ndim))
+        beat_mask = _beat_tracker(envelope, tempi, float(sr) / hop_length, tightness, trim,
+                                  env_t.device)
+        if not sparse:
+            return bpm, beat_mask
+        frames = np.flatnonzero(beat_mask)
+        if units == "frames":
+            return bpm, frames
+        if units == "samples":
+            return bpm, frames_to_samples(frames, hop_length=hop_length)
+        if units == "time":
+            return bpm, frames_to_time(frames, hop_length=hop_length, sr=sr)
+        raise ParameterError(f"units must be frames, samples, or time; got {units!r}")
 
 
 def plp(*, y: Any = None, sr: float = 22050, onset_envelope: Optional[Any] = None,

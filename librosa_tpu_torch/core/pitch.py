@@ -21,6 +21,7 @@ import torch
 
 from .._device import as_tensor, device_table
 from ..ops.db_scale import is_max_ref
+from ..util import profiling
 from ..util.exceptions import ParameterError
 from ..util.utils import _device_reduction, expand_to, frame, localmax, localmin, pad_last, tiny
 from .audio import autocorrelate
@@ -349,22 +350,23 @@ def _pyin_trough_probs(yin_frames: torch.Tensor, is_trough: torch.Tensor, thresh
     Boltzmann law over their order; where none is below, ``no_trough_prob``
     of that mass goes to the lowest trough.
     """
-    a = boltzmann_parameter
-    scale = float(1 - np.exp(-a))
-    yin_probs = torch.zeros_like(yin_frames)
-    empty_mass = torch.zeros_like(yin_frames[..., :1, :])
-    for k in range(len(thresholds) - 1):
-        below = is_trough & (yin_frames < float(thresholds[k + 1]))
-        rank = below.cumsum(dim=-2, dtype=torch.int32) - 1
-        n_below = below.sum(dim=-2, keepdim=True, dtype=torch.int32)
-        pmf = (torch.exp(-a * rank.to(yin_frames.dtype)) * scale
-               / (1 - torch.exp(-a * n_below.clamp_min(1).to(yin_frames.dtype))))
-        beta = float(beta_probs[k])
-        yin_probs += torch.where(below, pmf, 0.0) * beta
-        empty_mass += torch.where(n_below == 0, beta, 0.0)
-    lowest = torch.where(is_trough, yin_frames, float("inf")).argmin(dim=-2, keepdim=True)
-    empty_mass = torch.where(is_trough.any(dim=-2, keepdim=True), empty_mass, 0.0)
-    return yin_probs.scatter_add(-2, lowest, no_trough_prob * empty_mass)
+    with profiling.annotate("pyin.priors"):
+        a = boltzmann_parameter
+        scale = float(1 - np.exp(-a))
+        yin_probs = torch.zeros_like(yin_frames)
+        empty_mass = torch.zeros_like(yin_frames[..., :1, :])
+        for k in range(len(thresholds) - 1):
+            below = is_trough & (yin_frames < float(thresholds[k + 1]))
+            rank = below.cumsum(dim=-2, dtype=torch.int32) - 1
+            n_below = below.sum(dim=-2, keepdim=True, dtype=torch.int32)
+            pmf = (torch.exp(-a * rank.to(yin_frames.dtype)) * scale
+                   / (1 - torch.exp(-a * n_below.clamp_min(1).to(yin_frames.dtype))))
+            beta = float(beta_probs[k])
+            yin_probs += torch.where(below, pmf, 0.0) * beta
+            empty_mass += torch.where(n_below == 0, beta, 0.0)
+        lowest = torch.where(is_trough, yin_frames, float("inf")).argmin(dim=-2, keepdim=True)
+        empty_mass = torch.where(is_trough.any(dim=-2, keepdim=True), empty_mass, 0.0)
+        return yin_probs.scatter_add(-2, lowest, no_trough_prob * empty_mass)
 
 
 def pyin(y: Any, *, fmin: float, fmax: float, sr: float = 22050, frame_length: int = 2048,
@@ -386,23 +388,24 @@ def pyin(y: Any, *, fmin: float, fmax: float, sr: float = 22050, frame_length: i
     of ``f0`` hold ``fill_na`` (None: the decoded bin's frequency). Float64
     input runs in float64, everything else in float32.
     """
-    _check_yin_params(sr=sr, fmax=fmax, fmin=fmin, frame_length=frame_length,
-                      win_length=win_length)
-    hop_length = frame_length // 4 if hop_length is None else hop_length
-    y = as_tensor(y)
-    dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
-    model = _PyinModel(sr=sr, fmin=fmin, fmax=fmax, hop_length=hop_length,
-                       n_thresholds=n_thresholds, beta_parameters=beta_parameters,
-                       resolution=resolution, max_transition_rate=max_transition_rate,
-                       switch_prob=switch_prob, transition_min_prob=transition_min_prob,
-                       boltzmann_parameter=boltzmann_parameter, no_trough_prob=no_trough_prob)
-    y = y.to(dtype)
-    if center:
-        y = pad_last(y, frame_length // 2, frame_length // 2, mode=pad_mode)
-    obs_full, voiced_prob = model.observe(frame(y, frame_length=frame_length,
-                                                hop_length=hop_length), frame_length)
-    f0, voiced_flag = model.decode(obs_full, fill_na)
-    return f0, voiced_flag, voiced_prob
+    with profiling.annotate("pyin"):
+        _check_yin_params(sr=sr, fmax=fmax, fmin=fmin, frame_length=frame_length,
+                          win_length=win_length)
+        hop_length = frame_length // 4 if hop_length is None else hop_length
+        y = as_tensor(y)
+        dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
+        model = _PyinModel(sr=sr, fmin=fmin, fmax=fmax, hop_length=hop_length,
+                           n_thresholds=n_thresholds, beta_parameters=beta_parameters,
+                           resolution=resolution, max_transition_rate=max_transition_rate,
+                           switch_prob=switch_prob, transition_min_prob=transition_min_prob,
+                           boltzmann_parameter=boltzmann_parameter, no_trough_prob=no_trough_prob)
+        y = y.to(dtype)
+        if center:
+            y = pad_last(y, frame_length // 2, frame_length // 2, mode=pad_mode)
+        obs_full, voiced_prob = model.observe(frame(y, frame_length=frame_length,
+                                                    hop_length=hop_length), frame_length)
+        f0, voiced_flag = model.decode(obs_full, fill_na)
+        return f0, voiced_flag, voiced_prob
 
 
 class _PyinModel:

@@ -18,6 +18,7 @@ from ..core.audio import autocorrelate
 from ..core.convert import fourier_tempo_frequencies, tempo_frequencies, time_to_frames
 from ..core.spectrum import stft
 from ..filters import get_window
+from ..util import profiling
 from ..util import utils as util
 from ..util.exceptions import ParameterError
 
@@ -87,32 +88,33 @@ def tempo(*, y: Any = None, sr: float = 22050, onset_envelope: Optional[Any] = N
     prior is log-normal around ``start_bpm`` with ``std_bpm`` octaves (or
     ``prior.logpdf``), and tempi from ``max_tempo`` up are excluded.
     """
-    if start_bpm <= 0:
-        raise ParameterError("start_bpm must be strictly positive")
-    if tg is None:
-        win_length = int(time_to_frames(ac_size, sr=sr, hop_length=hop_length))
-    else:
-        tg = as_tensor(tg)
-        win_length = tg.shape[-2]
-    bpms = tempo_frequencies(win_length, hop_length=hop_length, sr=sr)
-    if prior is None:
-        with np.errstate(divide="ignore"):
-            logprior = -0.5 * ((np.log2(bpms) - np.log2(start_bpm)) / std_bpm) ** 2
-    else:
-        logprior = np.asarray(prior.logpdf(bpms))
-    if max_tempo is not None:
-        logprior[:int(np.argmax(bpms < max_tempo))] = -np.inf
+    with profiling.annotate("tempo"):
+        if start_bpm <= 0:
+            raise ParameterError("start_bpm must be strictly positive")
+        if tg is None:
+            win_length = int(time_to_frames(ac_size, sr=sr, hop_length=hop_length))
+        else:
+            tg = as_tensor(tg)
+            win_length = tg.shape[-2]
+        bpms = tempo_frequencies(win_length, hop_length=hop_length, sr=sr)
+        if prior is None:
+            with np.errstate(divide="ignore"):
+                logprior = -0.5 * ((np.log2(bpms) - np.log2(start_bpm)) / std_bpm) ** 2
+        else:
+            logprior = np.asarray(prior.logpdf(bpms))
+        if max_tempo is not None:
+            logprior[:int(np.argmax(bpms < max_tempo))] = -np.inf
 
-    if tg is None:
-        tg = tempogram(y=y, sr=sr, onset_envelope=onset_envelope, hop_length=hop_length,
-                       win_length=win_length)
-    if aggregate is np.mean:
-        tg = tg.mean(dim=-1, keepdim=True)
-    elif aggregate is not None:
-        tg = as_tensor(aggregate(util._host(tg), axis=-1, keepdims=True)).to(tg.device)
-    lp = torch.as_tensor(logprior, dtype=tg.dtype, device=tg.device).reshape(-1, 1)
-    best_period = torch.argmax(torch.log1p(1e6 * tg) + lp, dim=-2)
-    return np.take(bpms, best_period.cpu().numpy())
+        if tg is None:
+            tg = tempogram(y=y, sr=sr, onset_envelope=onset_envelope, hop_length=hop_length,
+                           win_length=win_length)
+        if aggregate is np.mean:
+            tg = tg.mean(dim=-1, keepdim=True)
+        elif aggregate is not None:
+            tg = as_tensor(aggregate(util._host(tg), axis=-1, keepdims=True)).to(tg.device)
+        lp = torch.as_tensor(logprior, dtype=tg.dtype, device=tg.device).reshape(-1, 1)
+        best_period = torch.argmax(torch.log1p(1e6 * tg) + lp, dim=-2)
+        return np.take(bpms, util._host(best_period))
 
 
 def tempogram_ratio(*, y: Any = None, sr: float = 22050, onset_envelope: Optional[Any] = None,

@@ -21,6 +21,7 @@ from .core.convert import frames_to_samples, frames_to_time
 from .core.spectrum import power_to_db
 from .feature.spectral import melspectrogram
 from .ops.iir import first_order_filter
+from .util import profiling
 from .util import utils as util
 from .util.exceptions import ParameterError
 from .util.matching import match_events
@@ -43,15 +44,16 @@ def onset_strength(*, y: Any = None, sr: float = 22050, S: Any = None, lag: int 
     ``detrend`` removes the DC with ``(1 - z^-1) / (1 - 0.99 z^-1)``;
     ``center`` shifts the envelope onto centred frames.
     """
-    if aggregate is False:
-        raise ParameterError(
-            "onset_strength always aggregates over frequency; use "
-            "onset_strength_multi for unaggregated envelopes"
-        )
-    env = onset_strength_multi(y=y, sr=sr, S=S, lag=lag, max_size=max_size, ref=ref,
-                               detrend=detrend, center=center, feature=feature,
-                               aggregate=aggregate, channels=None, **kwargs)
-    return env[..., 0, :]
+    with profiling.annotate("onset_strength"):
+        if aggregate is False:
+            raise ParameterError(
+                "onset_strength always aggregates over frequency; use "
+                "onset_strength_multi for unaggregated envelopes"
+            )
+        env = onset_strength_multi(y=y, sr=sr, S=S, lag=lag, max_size=max_size, ref=ref,
+                                   detrend=detrend, center=center, feature=feature,
+                                   aggregate=aggregate, channels=None, **kwargs)
+        return env[..., 0, :]
 
 
 def _max_filter_bands(S: torch.Tensor, size: int) -> torch.Tensor:

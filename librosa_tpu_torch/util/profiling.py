@@ -1,7 +1,11 @@
 """Tracing, launch counts and roofline accounting over ``torch.profiler``.
 
-- :func:`trace` / :func:`annotate`: a Chrome trace of a block, and named
-  regions in it (with an NVTX range on a CUDA machine).
+- :func:`annotate` / :func:`count` / :func:`recorded`: the program's own
+  spans and counters. They record only while a torch profiler runs (the
+  flag the profiler sets is the switch), on the Unix clock that Kineto
+  stamps its host and device events with, so a span can be set against
+  the device's timeline.
+- :func:`trace`: a Chrome trace of a block, with the program's spans in it.
 - :func:`dispatch_profile`: kernel launches, top-level torch ops and
   host-device copies in one call, read from the profiler's event list.
 - :func:`calibrate`: this device's sustained float32 and bfloat16 matrix
@@ -16,11 +20,15 @@ by :func:`roofline`'s counters, which see torch ops only.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,6 +38,9 @@ from .._device import as_tensor, exact_f32
 __all__ = [
     "trace",
     "annotate",
+    "count",
+    "counts",
+    "recorded",
     "calibrate",
     "roofline",
     "dispatch_profile",
@@ -41,6 +52,132 @@ __all__ = [
 _LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
                            "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch"})
 
+# the C-level flag that torch.profiler sets in the thread it records (~0.1 us a call)
+_tracing = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+_counts_lock = threading.Lock()
+_THREAD_COUNTS: list = []
+
+
+class _Thread(threading.local):
+    """Each thread's stack of open spans, its counters (kept for :func:`counts` after the
+    thread ends) and its native id, read once (a system call)."""
+
+    def __init__(self) -> None:
+        self.stack: list = []
+        self.counts: dict = {}
+        self.tid = threading.get_native_id()
+        with _counts_lock:
+            _THREAD_COUNTS.append(self.counts)
+
+
+_local = _Thread()
+_span_ids = itertools.count()
+
+
+class Span:
+    """One region the program recorded: ``name``, ``start_ns`` and ``end_ns`` from
+    ``time.time_ns()``, its own ``index``, its ``parent``'s index (-1 for none), ``call``
+    (the index of its outermost span: one per public call), the native thread id ``tid``
+    and the ``counters`` added while it was the innermost open span."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "index", "parent", "call", "tid", "counters")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "Span":
+        mine = _local
+        stack = mine.stack
+        outer = stack[-1] if stack else None
+        self.index = next(_span_ids)
+        self.parent = outer.index if outer else -1
+        self.call = outer.call if outer else self.index
+        self.tid = mine.tid
+        self.counters = {}
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        self.end_ns = time.time_ns()
+        _local.stack.pop()
+        _RECORD.add(self)
+        return False
+
+
+class Recorded(NamedTuple):
+    """What :func:`recorded` returns: the spans held, oldest first, how many were dropped to
+    keep the bound, and the latest ``end_ns`` among those dropped (0 if none)."""
+    spans: tuple
+    dropped: int
+    dropped_end_ns: int
+
+
+class SpanRecord:
+    """Finished spans in memory, at most ``capacity``: a full record drops its oldest span for
+    each new one and counts what it drops."""
+
+    def __init__(self, capacity: int):
+        self._spans = collections.deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self.dropped = 0
+        self.dropped_end_ns = 0
+
+    def add(self, span: Span) -> None:
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
+                self.dropped_end_ns = max(self.dropped_end_ns, self._spans[0].end_ns)
+            self._spans.append(span)
+
+    def read(self) -> Recorded:
+        with self._lock:
+            return Recorded(tuple(self._spans), self.dropped, self.dropped_end_ns)
+
+
+SPAN_CAPACITY = 1 << 16
+_RECORD = SpanRecord(SPAN_CAPACITY)
+
+
+def annotate(name: str):
+    """A named span of the program, as a context manager.
+
+    While no torch profiler records the calling thread (torch's profiler
+    records the thread that started it) this returns a shared null context
+    and records nothing. While one does, the span is kept in the program's
+    record (:func:`recorded`) with its start, end, parent and call, and
+    :func:`trace` writes it into its Chrome trace. Spans nest per thread.
+    """
+    if not _tracing():
+        return _NULL
+    return Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name``, and to the innermost open span's."""
+    mine = _local
+    mine.counts[name] = mine.counts.get(name, 0) + n
+    if mine.stack:
+        counters = mine.stack[-1].counters
+        counters[name] = counters.get(name, 0) + n
+
+
+def counts() -> dict:
+    """The program's counters since the process started, summed over its threads."""
+    total: dict = {}
+    with _counts_lock:
+        for per_thread in _THREAD_COUNTS:
+            for name, n in list(per_thread.items()):
+                total[name] = total.get(name, 0) + n
+    return total
+
+
+def recorded() -> Recorded:
+    """The spans the program has recorded (at most :data:`SPAN_CAPACITY`, the newest) and
+    what the bound dropped."""
+    return _RECORD.read()
+
 
 def _activities() -> list:
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -49,25 +186,34 @@ def _activities() -> list:
     return acts
 
 
+def _add_spans(path: str, spans) -> None:
+    """Write ``spans`` into the Chrome trace at ``path`` as complete events, in microseconds
+    from the trace's ``baseTimeNanoseconds``."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    doc.setdefault("traceEvents", []).extend(
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": s.tid,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"index": s.index, "parent": s.parent, "call": s.call,
+                  "counters": s.counters}}
+        for s in spans)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """Profile the enclosed block (CPU, and CUDA where present) and write its Chrome trace
-    into ``log_dir`` as ``trace_<pid>_<ns>.json``."""
+    """Profile the enclosed block (CPU, and CUDA where present) and write its Chrome trace,
+    with the program's spans of the block, into ``log_dir`` as ``trace_<pid>_<ns>.json``."""
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=_activities()) as prof:
+        begun = time.time_ns()
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region on the trace timeline (``record_function``, and an NVTX range on a CUDA
-    machine). Regions nest and cost little when no trace is active."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, [s for s in recorded().spans if s.start_ns >= begun])
 
 
 def _busy_us(spans: list) -> float:

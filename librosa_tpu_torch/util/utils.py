@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from .._device import as_tensor
 from ..ops import peaks as _peaks
 from ..ops.framing import frame_signal
+from . import profiling
 from .exceptions import ParameterError
 
 __all__ = ["tiny", "expand_to", "normalize", "pad_center", "fix_length", "localmax", "localmin",
@@ -240,8 +241,16 @@ def peak_pick(x: Any, *, pre_max: int, post_max: int, pre_avg: int, post_avg: in
 
 
 def _host(x: Any) -> np.ndarray:
-    """``x`` as a numpy array on the host (a tensor is copied off its device)."""
+    """``x`` as a numpy array on the host (a tensor is copied off its device).
+
+    A copy off a CUDA device waits for the card: it is the program's span
+    ``to_host`` and adds one to its counter ``host_syncs``.
+    """
     if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            with profiling.annotate("to_host"):
+                profiling.count("host_syncs")
+                return x.detach().cpu().numpy()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
