@@ -86,10 +86,15 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    of the route threshold, 1 to 8193 frames, 1 to 17 rows, pYIN's pruned
    transitions with and without two all -inf columns, log_prob -inf over a
    column's runs, a dense 870-state matrix, a third of the transitions -inf,
-   exact ties); times the forward pass by route at S = 2, 5, 64, 128, 256 and
-   870; drives ``entry.onset_beat_pyin()`` (onset strength, tempo, beats, pYIN
-   at 65-800 Hz) on 16 seeded tracks of a melody over clicks of 2**22 samples,
-   checks its launches (stft_mel, db_scale, beat_dp and viterbi once each)
+   exact ties), and the trough priors kernel (``csrc/trough_priors.cu``) against its
+   plain loop, bit for bit in float32 and float64 (pYIN's own CMND and troughs at (16, 314, 8193)
+   and (32, 314, 1292), random ones from numpy, frames with no trough, one, every other lag
+   or every lag a trough, values at the float thresholds, T = 1, P = 2047, a strided view),
+   once per ``pyin`` call, timed beside the loop and its bound by bytes; times the forward
+   pass by route at S = 2, 5, 64, 128, 256 and 870; drives ``entry.onset_beat_pyin()``
+   (onset strength, tempo, beats, pYIN at 65-800 Hz) on 16 seeded tracks of a melody over
+   clicks of 2**22 samples,
+   checks its launches (stft_mel, db_scale, beat_dp, viterbi and trough_priors once each)
    and holds tracks 0 and 1 against the port's float64 CPU run; runs
    bench.py's 1-D shapes (``beat_track`` of 30 s through the host DP,
    ``pyin`` of 5 s) against float64 too; holds both kernels at the path's
@@ -164,8 +169,9 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    unsharded port (the STFTs bit for bit, the rest at
    ``tests/test_parallel.py``'s tolerances), each chain's kernel launches
    against the design (the mel kernel once a position and once for the
-   trailing frame, the median kernel twice a position, the dB, beat DP and
-   Viterbi kernels once), the sharded envelope against float64; times by
+   trailing frame, the median kernel twice a position, the trough priors
+   kernel once a position and once for the one-frame tail, the dB, beat DP
+   and Viterbi kernels once), the sharded envelope against float64; times by
    CUDA events and peak memory at 8 and 1 positions beside the unsharded
    call, ``scaling_report`` over 1-8 positions of the card (the cost of
    sharding on one card, not scaling), ``dispatch_profile`` of two chains,
@@ -2029,6 +2035,128 @@ def viterbi_kernel_phase(torch, rng, device, pyin_trans) -> None:
           f"memory")
 
 
+def priors_equal(torch, got, want) -> bool:
+    """Bit for bit, NaN where the other has NaN, and the plain version's layout."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and got.stride() == want.stride()
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(torch.where(nan, 0.0, got), torch.where(nan, 0.0, want)))
+
+
+def trough_priors_phase(torch, L, rng, device) -> dict:
+    """Phase 4i, the trough priors kernel: against the plain loop on the card, bit for bit, in
+    float32 and float64, on pYIN's own inputs and on edge cases, its launches on the path, and
+    its time beside the loop's and the bound by bytes."""
+    from librosa_tpu_torch.core import pitch
+    from librosa_tpu_torch.ops import trough_priors as tp
+
+    key = (float(SR), PYIN5["fmin"], PYIN5["fmax"], 512, 100, (2.0, 18.0), 0.1, 35.92, 0.01,
+           1e-4)
+    thresholds, beta_probs, _, _ = pitch._pyin_tables(*key)
+    yin_kw = dict(sr=SR, fmin=PYIN5["fmin"], fmax=PYIN5["fmax"], frame_length=2048,
+                  hop_length=512, center=True, pad_mode="constant")
+
+    def path_case(rows, n, seed, dtype):  # the CMND and troughs pyin computes, on the card
+        y = config5_signal(torch, (rows, n), seed, device).to(dtype)
+        yin, _, trough, _ = pitch._yin_frames(y, **yin_kw)
+        return yin, trough
+
+    def host_case(values, trough):  # made on the CPU from numpy, copied up
+        return (torch.from_numpy(np.ascontiguousarray(values)).to(device),
+                torch.from_numpy(np.ascontiguousarray(trough)).to(device))
+
+    def edge_case(np_dtype):
+        t = thresholds[1:].astype(np_dtype)
+        v = t[rng.randint(0, 100, size=(3, 314, 64))].astype(np_dtype)  # every value a threshold
+        v[:, :, 32:] = (rng.rand(3, 314, 32) * 1.2).astype(np_dtype)
+        m = rng.rand(3, 314, 64) < 0.3
+        m[:, :, 0] = False                                   # no trough
+        m[:, :, 1] = False
+        m[:, 100, 1] = True                                  # one trough
+        m[:, :, 2] = False
+        m[:, ::2, 2] = True                                  # every other lag
+        m[:, :, 3] = True                                    # every lag
+        m[:, :, 4] = False
+        m[:, 7, 4] = m[:, 250, 4] = True
+        v[:, 7, 4] = v[:, 250, 4] = v[:, 7, 5]               # two lowest troughs, equal
+        return host_case(v, m)
+
+    cases = []
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        name = str(dtype).replace("torch.", "")
+        cases += [
+            (f"{name}, pyin's input (16, 314, 8193)", *path_case(16, 1 << 22, 5, dtype)),
+            (f"{name}, pyin's input (32, 314, 1292), 30 s clips", *path_case(32, 661500, 6, dtype)),
+            (f"{name}, random CMND from numpy (4, 314, 1000)",
+             *host_case((rng.rand(4, 314, 1000) * 1.2).astype(np_dtype),
+                        rng.rand(4, 314, 1000) < 0.3)),
+            (f"{name}, no trough / one / every other lag / every lag / values at the float "
+             f"thresholds / equal lowest troughs", *edge_case(np_dtype)),
+            (f"{name}, T = 1", *host_case((rng.rand(16, 314, 1) * 1.2).astype(np_dtype),
+                                          rng.rand(16, 314, 1) < 0.3)),
+            (f"{name}, P = 2047", *host_case((rng.rand(2, 2047, 300) * 1.2).astype(np_dtype),
+                                             rng.rand(2, 2047, 300) < 0.3)),
+        ]
+        yin, trough = path_case(4, 1 << 18, 7, dtype)
+        cases.append((f"{name}, a non-contiguous view (every other track and frame)",
+                      yin[::2, :, ::2], trough[::2, :, ::2]))
+    for label, yin, trough in cases:
+        want = tp.trough_priors_reference(yin, trough, thresholds, beta_probs, 2.0, 0.01)
+        poison(torch, tuple(want.shape), device)
+        before = tp.launches
+        got = tp.trough_priors(yin, trough, thresholds, beta_probs, 2.0, 0.01)
+        torch.cuda.synchronize()
+        ok = priors_equal(torch, got, want) and tp.launches == before + 1
+        print(f"trough priors kernel vs plain, {label}, yin strides {yin.stride()}: "
+              f"{'bit-equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            bad = int((got != want).sum())
+            raise AssertionError(f"trough priors kernel vs plain, {label}: {bad} elements differ "
+                                 f"(launches {tp.launches - before}, strides {got.stride()} vs "
+                                 f"{want.stride()})")
+    print(f"trough priors kernel vs plain: {len(cases)} cases bit-equal in float32 and float64, "
+          f"each on NaN-filled memory")
+
+    # once per pyin call on the main path
+    y = config5_signal(torch, (2, 1 << 18), 8, device)
+    L.pyin(y, sr=SR, **PYIN5)
+    before = tp.launches
+    for _ in range(3):
+        L.pyin(y, sr=SR, **PYIN5)
+    torch.cuda.synchronize()
+    per_call = (tp.launches - before) / 3
+    print(f"trough priors launches per pyin call: {per_call}")
+    if per_call != 1:
+        raise AssertionError(f"pyin launched the trough priors kernel {per_call} times a call")
+
+    # times at pyin's shape on the main buffer, beside the loop's and the bound by bytes
+    yin, trough = path_case(16, 1 << 22, 5, torch.float32)
+    run = lambda: tp.trough_priors(yin, trough, thresholds, beta_probs, 2.0, 0.01)
+    kernel_ms = time_ms(torch, run, 20)
+    yin64, trough64 = path_case(16, 1 << 22, 5, torch.float64)
+    kernel64_ms = time_ms(torch, lambda: tp.trough_priors(yin64, trough64, thresholds, beta_probs,
+                                                          2.0, 0.01), 10)
+    del yin64, trough64
+    plain_ms = time_ms(torch, lambda: tp.trough_priors_reference(yin, trough, thresholds,
+                                                                 beta_probs, 2.0, 0.01), 1,
+                       groups=2)
+    bytes_moved = 9 * yin.numel()  # yin and the mask read once, the priors written once
+    bound_ms = 1e3 * bytes_moved / H100_HBM_BYTES_S
+    print(f"trough priors kernel {kernel_ms:.4f} ms on {tuple(yin.shape)} float32 (float64 "
+          f"{kernel64_ms:.4f} ms), plain loop {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes "
+          f"({bytes_moved} bytes); {kernel_ms / bound_ms:.2f}x the bound; yin strides "
+          f"{yin.stride()}, trough strides {trough.stride()}")
+    return {
+        "name": "trough_priors", "route": "cuda",
+        "source": "librosa_tpu_torch/csrc/trough_priors.cu",
+        "replaces": "librosa_tpu/core/pitch.py:773 _pyin_trough_probs (an XLA program: no Pallas "
+                    "kernel computes the trough priors)",
+        "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0, "ms": kernel_ms,
+        "kernel_ms": kernel_ms, "float64_ms": kernel64_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+    }
+
+
 def viterbi_route_times(torch, rng, device, lt870, lpi870) -> dict:
     """Kernel B's forward pass by each route on (16, 8193, S), S = 2, 5, 64, 128, 256, 870."""
     from librosa_tpu_torch.ops import viterbi
@@ -2071,7 +2199,8 @@ def config5_phase(torch, L, device) -> dict:
     from librosa_tpu_torch import beat
     from librosa_tpu_torch.core import pitch
     from librosa_tpu_torch.entry import onset_beat_pyin
-    from librosa_tpu_torch.ops import beat_dp, db_scale, fused_stft, median, ola_norm, viterbi
+    from librosa_tpu_torch.ops import (beat_dp, db_scale, fused_stft, median, ola_norm,
+                                       trough_priors, viterbi)
 
     rng = np.random.RandomState(5)
     key = (float(SR), PYIN5["fmin"], PYIN5["fmax"], 512, 100, (2.0, 18.0), 0.1, 35.92, 0.01,
@@ -2083,10 +2212,12 @@ def config5_phase(torch, L, device) -> dict:
           f"{int(torch.isinf(lt).sum())} of {lt.numel()} transitions pruned to -inf")
     beat_dp_kernel_phase(torch, rng, device)
     viterbi_kernel_phase(torch, rng, device, (lt.cpu().numpy(), lpi.cpu().numpy()))
+    priors_entry = trough_priors_phase(torch, L, rng, device)
     route_times = viterbi_route_times(torch, rng, device, lt, lpi)
 
-    counters = (fused_stft, db_scale, ola_norm, median, beat_dp, viterbi)
-    names = ("stft_mel", "db_scale", "ola_norm", "median_filter", "beat_dp", "viterbi")
+    counters = (fused_stft, db_scale, ola_norm, median, beat_dp, viterbi, trough_priors)
+    names = ("stft_mel", "db_scale", "ola_norm", "median_filter", "beat_dp", "viterbi",
+             "trough_priors")
 
     def zero():
         for mod in counters:
@@ -2116,7 +2247,7 @@ def config5_phase(torch, L, device) -> dict:
           f"call {first_s:.3f} s; peak memory {peak_bytes} bytes, {peak_bytes - base_bytes} "
           f"above the {base_bytes} held before")
     want = {"stft_mel": 1, "db_scale": 1, "ola_norm": 0, "median_filter": 0, "beat_dp": 1,
-            "viterbi": 1}
+            "viterbi": 1, "trough_priors": 1}
     if counts != want:
         raise AssertionError(f"onset_beat_pyin launched {counts}, expected {want}")
     for name, t in (("envelope", env), ("f0", f0), ("voiced_flag", vflag),
@@ -2177,7 +2308,7 @@ def config5_phase(torch, L, device) -> dict:
           f"{'equal' if np.array_equal(tempo30, tempo30_64) else 'DIFFERENT'}, voicing equal "
           f"{v5_equal:.5f}, f0 {f0_5_snr:.1f} dB")
     if bench_counts != {"stft_mel": 1, "db_scale": 1, "ola_norm": 0, "median_filter": 0,
-                        "beat_dp": 0, "viterbi": 1}:
+                        "beat_dp": 0, "viterbi": 1, "trough_priors": 1}:
         raise AssertionError(f"bench.py's 1-D shapes launched {bench_counts}")
     if not (beats_agree(beats30, beats30_64) and np.array_equal(tempo30, tempo30_64)
             and v5_equal >= MIN_VOICED_EQUAL and f0_5_snr >= MIN_F0_SNR_DB):
@@ -2317,8 +2448,11 @@ def config5_phase(torch, L, device) -> dict:
         "max_active_clusters": occupancy, "chain_bound_ms": exchange_ms,
         "route_forward_ms": route_times, "library_ms": None, "states": S,
     }
+    priors_entry["launches"] = counts["trough_priors"] + bench_counts["trough_priors"]
+    priors_entry["launches_by_path"] = {**paths, "onset_beat_pyin": counts["trough_priors"],
+                                        "config5_bench_1d": bench_counts["trough_priors"]}
     return {"launches": counts, "bench_launches": bench_counts, "beat_dp": dp_entry,
-            "viterbi": vit_entry, "e2e_ms": e2e_ms}
+            "viterbi": vit_entry, "trough_priors": priors_entry, "e2e_ms": e2e_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -3593,18 +3727,20 @@ VPROB_SHARDED_ATOL = 1e-6     # tests/test_parallel.py:181
 TEMPO_SHARDED_RTOL = 1e-6     # tests/test_parallel.py:199
 DRYRUN_GRAD_RTOL = 1e-5       # the first step's gradient against float64 autograd
 SCALING_SECONDS = 10.0        # audio a position in scaling_report's runs
-SHARDED_KERNELS = ("stft_mel", "db_scale", "ola_norm", "median_filter", "beat_dp", "viterbi")
+SHARDED_KERNELS = ("stft_mel", "db_scale", "ola_norm", "median_filter", "beat_dp", "viterbi",
+                   "trough_priors")
 
 
 def sharded_launches(name: str, d: int) -> dict:
     """Launches of each hand kernel in one call of the sharded chain ``name`` on ``d`` positions,
     by the design: the mel kernel once a position and once for the trailing frame, the median
-    kernel twice a position, the dB, beat DP and Viterbi kernels once on the joined result."""
+    kernel twice a position, the trough priors kernel once a position's block and once for the
+    one-frame tail, the dB, beat DP and Viterbi kernels once on the joined result."""
     k1 = {"stft_mel": d + 1}
     want = {"stft": {}, "stft_reflect": {}, "melspectrogram": k1,
             "mfcc": {**k1, "db_scale": 1}, "onset_strength": k1, "tempo": k1, "pcen": {},
             "cqt": {}, "chroma_cqt": {}, "hpss": {"median_filter": 2 * d},
-            "pyin": {"viterbi": 1}, "beat_track": {**k1, "beat_dp": 1}}[name]
+            "pyin": {"viterbi": 1, "trough_priors": d + 1}, "beat_track": {**k1, "beat_dp": 1}}[name]
     return {k: want.get(k, 0) for k in SHARDED_KERNELS}
 
 
@@ -3637,12 +3773,13 @@ def sharded_phase(torch, L, device, y) -> dict:
     and ``dryrun_multichip(8)`` against float64 autograd."""
     from librosa_tpu_torch import parallel as P
     from librosa_tpu_torch.entry import dryrun_multichip
-    from librosa_tpu_torch.ops import beat_dp, db_scale, fused_stft, median, ola_norm, viterbi
+    from librosa_tpu_torch.ops import (beat_dp, db_scale, fused_stft, median, ola_norm,
+                                       trough_priors, viterbi)
     from librosa_tpu_torch.parallel import scaling
     from librosa_tpu_torch.util import profiling
 
     counters = dict(zip(SHARDED_KERNELS, (fused_stft, db_scale, ola_norm, median, beat_dp,
-                                          viterbi)))
+                                          viterbi, trough_priors)))
 
     def counted(fn):
         for mod in counters.values():
@@ -4450,7 +4587,8 @@ def main() -> int:
         entry["launches_by_path"]["config5_bench_1d"] = config5["bench_launches"][kernel]
     for entry, kernel in ((stft_mel_entry, "stft_mel"), (db_entry, "db_scale"),
                           (ola_entry, "ola_norm"), (median_entry, "median_filter"),
-                          (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi")):
+                          (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi"),
+                          (config5["trough_priors"], "trough_priors")):
         for path, phase in (("alignment_structure", structure), ("effects", effects),
                             ("features_inversion", features), ("pcen_spectrum_ext", pcen_ext),
                             ("segment_infrastructure", seg_infra), ("sharded", sharded),
@@ -4459,7 +4597,8 @@ def main() -> int:
             entry["launches_by_path"][path] = phase["launches"].get(kernel, 0)
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,
                                   config5["beat_dp"], config5["viterbi"],
-                                  *dial_scans["scans"].values(), *diag_entries]}))
+                                  config5["trough_priors"], *dial_scans["scans"].values(),
+                                  *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -6,8 +6,9 @@ back the count of peaks and then the winning cell, nothing larger, and
 ``piptrack`` reads back nothing: a callable ``ref`` is applied where the
 spectrogram lies. ``yin`` and ``pyin`` frame the signal and compute the
 cumulative mean normalised difference by FFT autocorrelation for every frame
-at once; ``pyin`` decodes its pitch and voicing HMM with the Viterbi kernel
-(``csrc/viterbi.cu``) on the card.
+at once; on the card ``pyin`` computes its trough priors with the trough
+priors kernel (``csrc/trough_priors.cu``) and decodes its pitch and voicing
+HMM with the Viterbi kernel (``csrc/viterbi.cu``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from .._device import as_tensor, device_table
 from ..ops.db_scale import is_max_ref
+from ..ops.trough_priors import trough_priors
 from ..util import profiling
 from ..util.exceptions import ParameterError
 from ..util.utils import _device_reduction, expand_to, frame, localmax, localmin, pad_last, tiny
@@ -344,29 +346,17 @@ def _pyin_tables(sr: float, fmin: float, fmax: float, hop_length: int, n_thresho
 def _pyin_trough_probs(yin_frames: torch.Tensor, is_trough: torch.Tensor, thresholds: np.ndarray,
                        beta_probs: np.ndarray, boltzmann_parameter: float,
                        no_trough_prob: float) -> torch.Tensor:
-    """Prior mass of each period candidate ``(..., P, T)``, one threshold at a time.
+    """Prior mass of each period candidate ``(..., P, T)``.
 
     For each threshold, the troughs below it share its beta mass by a
     Boltzmann law over their order; where none is below, ``no_trough_prob``
-    of that mass goes to the lowest trough.
+    of that mass goes to the lowest trough. On the card one launch of the
+    trough priors kernel (``ops/trough_priors.py``), on the CPU its plain
+    loop over thresholds.
     """
     with profiling.annotate("pyin.priors"):
-        a = boltzmann_parameter
-        scale = float(1 - np.exp(-a))
-        yin_probs = torch.zeros_like(yin_frames)
-        empty_mass = torch.zeros_like(yin_frames[..., :1, :])
-        for k in range(len(thresholds) - 1):
-            below = is_trough & (yin_frames < float(thresholds[k + 1]))
-            rank = below.cumsum(dim=-2, dtype=torch.int32) - 1
-            n_below = below.sum(dim=-2, keepdim=True, dtype=torch.int32)
-            pmf = (torch.exp(-a * rank.to(yin_frames.dtype)) * scale
-                   / (1 - torch.exp(-a * n_below.clamp_min(1).to(yin_frames.dtype))))
-            beta = float(beta_probs[k])
-            yin_probs += torch.where(below, pmf, 0.0) * beta
-            empty_mass += torch.where(n_below == 0, beta, 0.0)
-        lowest = torch.where(is_trough, yin_frames, float("inf")).argmin(dim=-2, keepdim=True)
-        empty_mass = torch.where(is_trough.any(dim=-2, keepdim=True), empty_mass, 0.0)
-        return yin_probs.scatter_add(-2, lowest, no_trough_prob * empty_mass)
+        return trough_priors(yin_frames, is_trough, thresholds, beta_probs, boltzmann_parameter,
+                             no_trough_prob)
 
 
 def pyin(y: Any, *, fmin: float, fmax: float, sr: float = 22050, frame_length: int = 2048,

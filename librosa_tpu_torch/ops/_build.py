@@ -32,7 +32,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {"stft_mel": "stft_mel.cu", "staged_probe": "staged_probe.cu",
            "db_scale": "db_scale.cu", "ola_norm": "ola_norm.cu",
            "median_filter": "median_filter.cu", "beat_dp": "beat_dp.cu",
-           "viterbi": "viterbi.cu", "peak_scan": "peak_scan.cu"}
+           "viterbi": "viterbi.cu", "peak_scan": "peak_scan.cu",
+           "trough_priors": "trough_priors.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
