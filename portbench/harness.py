@@ -206,14 +206,32 @@ def requests_loop(fwd, inputs, seconds, spans, keep, device, response, min_calls
 LOOPS = {"catalog": catalog_loop, "requests": requests_loop}
 
 
+def pool_seeds(cell: Cell, seed: int) -> list:
+    """The seed of each batch of the mix's pool."""
+    return [seed + k * POOL_SEED_STRIDE for k in range(int(cell.mix["pool"]))]
+
+
+def grid_line(cell: Cell, seed: int, device: torch.device):
+    """The tempi and starting pitches that the pool's batches play, as a line for standard
+    error: their ranges and each batch's first row's tempo; None for a signal without them."""
+    grid = signals.GRIDS.get(cell.mix["signal"])
+    if grid is None:
+        return None
+    bpm, f0 = zip(*(grid(int(cell.mix["rows"]), s, device)[1:] for s in pool_seeds(cell, seed)))
+    bpm, f0 = torch.cat(bpm, 1).cpu(), torch.cat(f0, 1).cpu()
+    return (f"draws: tempo {bpm.min().item():.4f}-{bpm.max().item():.4f} BPM, first rows "
+            + " ".join(f"{b:.4f}" for b in bpm[0].tolist())
+            + f" BPM, start pitch {f0.min().item():.4f}-{f0.max().item():.4f} Hz")
+
+
 def make_inputs(cell: Cell, seed: int, device: torch.device) -> list:
     """The mix's pool of batches from ``seed``: on the card for a catalogue, in pinned host
     memory for requests. Every seed gives the same sizes."""
     make = getattr(signals, cell.mix["signal"])
     pool = []
-    for k in range(int(cell.mix["pool"])):
-        y = make(int(cell.mix["rows"]), int(cell.mix["samples"]), seed + k * POOL_SEED_STRIDE,
-                 device, cell.cfg["sr"])
+    for batch_seed in pool_seeds(cell, seed):
+        y = make(int(cell.mix["rows"]), int(cell.mix["samples"]), batch_seed, device,
+                 cell.cfg["sr"])
         if cell.mix["loop"] == "requests":
             y = y.cpu()
             if device.type == "cuda":
@@ -303,6 +321,9 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, traced: bool, device: tor
     mark("two warm calls")
     print("set-up s: " + ", ".join(f"{part} {t - t0:.3f}" for (_, t0), (part, t) in zip(
         marks, marks[1:])), file=log)
+    grid = grid_line(cell, seed, device)
+    if grid:
+        print(grid, file=log)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     result = {"attempted": 0, "failed": 0}

@@ -8,6 +8,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,17 +111,80 @@ def test_no_result_in_a_directory_with_the_benchmark_alone(tmp_path):
     assert done.returncode != 0 and done.stdout == ""
 
 
-def test_signals_repeat_from_a_seed():
+@pytest.mark.parametrize("signal", ["melody_clicks", "melody_clicks_even"])
+def test_signals_repeat_from_a_seed(signal):
     seed = 2**31 + 77
-    a = signals.melody_clicks(3, 22050 * 4, seed, "cpu", 22050)
-    b = signals.melody_clicks(3, 22050 * 4, seed, "cpu", 22050)
-    c = signals.melody_clicks(3, 22050 * 4, seed + 1, "cpu", 22050)
+    make = getattr(signals, signal)
+    a = make(3, 22050 * 4, seed, "cpu", 22050)
+    b = make(3, 22050 * 4, seed, "cpu", 22050)
+    c = make(3, 22050 * 4, seed + 1, "cpu", 22050)
     assert a.dtype == torch.float32 and a.shape == (3, 22050 * 4)
     assert torch.equal(a, b) and not torch.equal(a, c)
     cell = tiny("onset_beat_pyin.clips")
     p, q = harness.make_inputs(cell, seed, torch.device("cpu")), \
         harness.make_inputs(cell, seed, torch.device("cpu"))
     assert all(torch.equal(x, y) for x, y in zip(p, q)) and not torch.equal(p[0], p[1])
+
+
+@pytest.mark.parametrize("workload", ["onset_beat_pyin.catalog", "onset_beat_pyin.clips"])
+def test_every_seed_and_batch_plays_the_same_grid(workload):
+    cell = harness.find_cell(workload)
+    rows = int(cell.mix["rows"])
+    grids = [signals.GRIDS[cell.mix["signal"]](rows, s, "cpu")[1:]
+             for seed in (0, 2**31 + 5, 3 * 2**32 + 11) for s in harness.pool_seeds(cell, seed)]
+    bpm, f0 = grids[0]
+    step = (torch.arange(rows) + rows // 2) % rows
+    mid = (step.double() + 0.5).reshape(rows, 1) / rows
+    assert torch.allclose(bpm, 80 + 80 * mid, rtol=0, atol=1e-12)
+    assert torch.allclose(f0, 110 * 4 ** mid, rtol=1e-12)
+    # the first row, whose tempo sizes the beat tracker's window, is the grid's middle
+    assert 115 < bpm[0].item() < 125 and bpm[0] > bpm.min()
+    assert bpm.min() > 80 and bpm.max() < 160 and f0.min() > 110 and f0.max() < 440
+    assert all(torch.equal(b, bpm) and torch.equal(f, f0) for b, f in grids)
+    line = harness.grid_line(cell, 2**31 + 5, torch.device("cpu"))
+    assert line.startswith(f"draws: tempo {bpm.min().item():.4f}-{bpm.max().item():.4f} BPM")
+
+
+@pytest.mark.parametrize("workload, signal", [
+    ("onset_beat_pyin.catalog", "melody_clicks_even"),
+    ("onset_beat_pyin.clips", "melody_clicks_even"),
+    ("mel_mfcc.catalog", "melody_clicks"), ("mel_mfcc.clips", "melody_clicks")])
+def test_each_cell_finds_its_signal(workload, signal):
+    assert harness.find_cell(workload).mix["signal"] == signal
+
+
+def _melody_clicks_as_first_benchmarked(rows, samples, seed, device, sr):
+    """``melody_clicks`` as the mel_mfcc cells were first measured with, written out whole."""
+    g = torch.Generator(device=device).manual_seed(int(seed) % (2**63))
+    f64 = dict(device=device, dtype=torch.float64)
+    t = torch.arange(samples, **f64) / sr
+    bpm = 80 + 80 * torch.rand(rows, 1, generator=g, **f64)
+    f0 = 110 * 2 ** (2 * torch.rand(rows, 1, generator=g, **f64))
+    beat_pos = t * bpm / 60
+    n_steps = int(np.ceil(samples / sr * 160 / 60)) + 2
+    steps = torch.randint(-3, 4, (rows, n_steps), generator=g, device=device)
+    semis = torch.cumsum(steps, 1).clamp(-12, 12).double().gather(1, beat_pos.long())
+    pitch = f0 * 2 ** (semis / 12) * (1 + 0.003 * torch.sin(2 * np.pi * 5 * t))
+    phase = 2 * np.pi * torch.cumsum(pitch / sr, dim=1)
+    tone = sum(torch.sin(k * phase) / k for k in range(1, 5))
+    frac = torch.frac(beat_pos)
+    noise = torch.randn(rows, samples, generator=g, **f64)
+    y = 0.2 * tone * torch.exp(-8 * frac) + 0.3 * noise * torch.exp(-frac * 60 / bpm * 200)
+    return (y + 0.01 * noise).float()
+
+
+@pytest.mark.parametrize("workload", ["mel_mfcc.catalog", "mel_mfcc.clips"])
+def test_the_mel_mfcc_inputs_are_melody_clicks(workload):
+    cell = tiny(workload)
+    seed = 2**31 + 4242
+    got = harness.make_inputs(cell, seed, torch.device("cpu"))
+    rows, samples = int(cell.mix["rows"]), int(cell.mix["samples"])
+    want = [_melody_clicks_as_first_benchmarked(rows, samples, s, torch.device("cpu"), 22050)
+            for s in harness.pool_seeds(cell, seed)]
+    assert len(got) == len(want) == int(cell.mix["pool"])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert harness.grid_line(cell, seed, torch.device("cpu")).startswith("draws: tempo ")
+    assert harness.grid_line(cell, seed, torch.device("cpu")).startswith("draws: tempo ")
 
 
 def test_busy_idle_and_launch_arithmetic():
