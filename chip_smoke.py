@@ -35,12 +35,17 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    checks that a second run gives the same bits;
 4d. drives ``entry.reconstruction()`` (resample 22050 -> 16000 Hz, |STFT|,
    32 rounds of Griffin-Lim) on the same buffer, checks that it launched the
-   mel kernel once and the synthesis kernel 33 times, holds the mel kernel
+   mel kernel once, the synthesis kernel 33 times and the phase update kernel
+   (``csrc/phase_update.cu``) 32 times, holds the mel kernel
    at this path's shape (rows off a 16-byte boundary, a ragged last frame
    tile) against its plain version and float64, ``resample`` against float64 ``scipy.signal.resample_poly``, ``istft(stft(y))`` against
    ``y``, four zero-phase rounds against a float64 numpy loop, the spectral
    convergence and the seed's determinism, and times the path end to end
-   and part by part, with its peak memory;
+   and part by part, with its peak memory; holds the phase update kernel
+   against its plain version bit for bit on NaN-filled memory (the cell's
+   shape and small ones: an odd count, a scalar head, S at another alignment,
+   zeros, subnormal, large, infinite and NaN values; with tprev and without)
+   and times it beside the plain version and its bound by bytes;
 4e. holds ``estimate_tuning`` against a float64 numpy version on detuned
    tones, ``piptrack`` with ``ref=np.mean``, ``np.sum`` and ``torch.mean``
    on the card against the CPU run (``np.median`` raises there), drives
@@ -134,7 +139,9 @@ with one NVIDIA H100, ``nvcc`` and a CUDA build of PyTorch. It
    from ``chroma_stft``, ``delta`` (orders 1 and 2), ``stack_memory`` and
    ``mfcc_to_mel`` on its MFCCs; on the chirp batch's mel spectrogram
    ``mel_to_stft`` (NNLS, 300 FISTA rounds over all 131088 frames) and
-   ``mel_to_audio`` (32 Griffin-Lim rounds, the synthesis kernel 33 times).
+   ``mel_to_audio`` (32 Griffin-Lim rounds: the synthesis kernel 33 times,
+   the phase update kernel 32 times, its last launch held bit for bit
+   against its plain version on the inputs the path gave it).
    Track 0 against float64 numpy and scipy; the NNLS on track 0's first
    128 frames against a float64 FISTA from the same start, by its fit and
    objective; Griffin-Lim by its convergence to the NNLS magnitude; times
@@ -992,6 +999,113 @@ def griffinlim64(S, window, *, n_iter, n_fft, hop, length, momentum=0.99):
     return istft64(S * angles, window, n_fft=n_fft, hop=hop, length=length)
 
 
+def phase_update_phase(torch, device) -> dict:
+    """Phase 4d, Griffin-Lim's phase update kernel (``csrc/phase_update.cu``): against the plain
+    torch passes on the card, bit for bit with NaN where they give NaN, on NaN-filled memory, at
+    the reconstruction cell's shape and at small ones (an odd count, bases 8 bytes past a 16-byte
+    boundary, S at another alignment, zeros, subnormal, large, infinite and NaN values), with
+    tprev and without; then its time beside the plain version's and the bound by bytes."""
+    from librosa_tpu_torch.ops import phase_update as pu
+
+    weight = 0.99 / 1.99
+    gen = torch.Generator(device=device).manual_seed(26)
+
+    def time_major(shape, scale=1.0):  # (..., bins, T) views of time-major memory, as stft's
+        *lead, bins, T = shape
+        z = torch.randn(*lead, T, bins, 2, generator=gen, device=device) * scale
+        return torch.view_as_complex(z).transpose(-2, -1)
+
+    def flat(n, offset=0, scale=1.0):
+        z = torch.randn(n + offset, 2, generator=gen, device=device) * scale
+        return torch.view_as_complex(z)[offset:]
+
+    def special(n):
+        r, t = flat(n), flat(n)
+        r[::9] = 0
+        t[::9] = 0                                          # z == 0
+        r[1::9] = 1e-41 + 1e-42j
+        t[1::9] = 0                                         # subnormal z
+        r[2::9] *= 1e37                                     # large z
+        r[3::9] = complex(float("inf"), 1.0)                # infinite z
+        r[4::9] = complex(float("nan"), 0.0)                # NaN z
+        t[5::9] = flat(len(t[5::9]), scale=1e-39)           # a subnormal tprev
+        return r, t
+
+    def bits(z):
+        v = torch.view_as_real(z)
+        nan = torch.isnan(v)
+        return nan, torch.where(nan, 0.0, v).view(torch.int32)
+
+    def compare(label, estimate, rebuilt, tprev, S):
+        want = torch.empty_like(estimate)
+        pu.phase_update_reference(want, rebuilt, tprev, S, weight)
+        estimate.fill_(complex(float("nan"), float("nan")))
+        before = pu.launches
+        pu.phase_update(estimate, rebuilt, tprev, S, weight)
+        torch.cuda.synchronize()
+        (gn, gb), (wn, wb) = bits(estimate), bits(want)
+        differ = int(((gb != wb) | (gn != wn)).any(-1).sum())
+        print(f"phase update kernel vs plain, {label}, {estimate.numel()} elements, strides "
+              f"{estimate.stride()}: {'bit-equal' if differ == 0 else f'{differ} differ'}")
+        if differ or pu.launches != before + 1:
+            raise AssertionError(f"phase update kernel vs plain, {label}: {differ} elements "
+                                 f"differ, {pu.launches - before} launches")
+
+    cell = (16, 1025, 5945)  # reconstruction.catalog: |STFT| of 16 tracks of 190 s at 16 kHz
+    n = 100003
+    base = [flat(n, offset=1) for _ in range(3)]
+    S_odd = flat(n + 1).abs()[1:]  # 4 bytes past an 8-byte boundary, as the bases are past 16
+    r, t = special(n)
+    cases = [(f"{'tprev' if prev else 'no tprev'}, {label}", shape, prev)
+             for prev in (False, True)
+             for label, shape in ((f"the cell's shape {cell}", cell),
+                                  ("(3, 257, 41): an odd count", (3, 257, 41)))]
+    for label, shape, prev in cases:
+        compare(label, time_major(shape), time_major(shape),
+                time_major(shape) if prev else None, time_major(shape).abs())
+    flat_cases = [
+        ("tprev, bases 8 bytes past 16: a scalar head", base[0], base[1], base[2], S_odd),
+        ("no tprev, bases 8 bytes past 16", base[0], base[1], None, S_odd),
+        ("tprev, S at another alignment: all scalar", base[0], base[1], base[2], flat(n).abs()),
+        ("tprev, zeros, subnormal, large, infinite and NaN values", flat(n), r, t, flat(n).abs()),
+        ("no tprev, the same values", flat(n), r, None, flat(n).abs()),
+    ]
+    for label, *args in flat_cases:
+        compare(label, *args)
+    print(f"phase update kernel vs plain: {len(cases) + len(flat_cases)} cases bit-equal, each "
+          f"on NaN-filled memory")
+
+    # times at the cell's shape, beside the plain passes and the bound by bytes
+    estimate, rebuilt, tprev = time_major(cell), time_major(cell), time_major(cell)
+    S = time_major(cell).abs()
+    kernel_ms = time_ms(torch, lambda: pu.phase_update(estimate, rebuilt, tprev, S, weight), 20)
+    first_ms = time_ms(torch, lambda: pu.phase_update(estimate, rebuilt, None, S, weight), 20)
+    plain_ms = time_ms(torch, lambda: pu.phase_update_reference(estimate, rebuilt, tprev, S,
+                                                                 weight), 5)
+    plain_first_ms = time_ms(torch, lambda: pu.phase_update_reference(estimate, rebuilt, None, S,
+                                                                       weight), 5)
+    elements = estimate.numel()
+    bytes_moved, first_bytes = 28 * elements, 20 * elements  # each tensor read or written once
+    bound_ms = 1e3 * bytes_moved / H100_HBM_BYTES_S
+    first_bound_ms = 1e3 * first_bytes / H100_HBM_BYTES_S
+    print(f"phase update kernel on {cell} complex64: with tprev {kernel_ms:.4f} ms (bound "
+          f"{bound_ms:.4f} ms by bytes, {bytes_moved} bytes; {100 * bound_ms / kernel_ms:.1f} % "
+          f"of it), without {first_ms:.4f} ms (bound {first_bound_ms:.4f} ms, "
+          f"{100 * first_bound_ms / first_ms:.1f} %); plain torch passes {plain_ms:.4f} ms with "
+          f"tprev, {plain_first_ms:.4f} ms without")
+    del estimate, rebuilt, tprev, S
+    return {
+        "name": "phase_update", "route": "cuda",
+        "source": "librosa_tpu_torch/csrc/phase_update.cu",
+        "replaces": "librosa_tpu/core/spectrum.py:1337-1338, Griffin-Lim's update inside the "
+                    "jitted loop (XLA: no Pallas kernel computes it)",
+        "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0, "ms": kernel_ms,
+        "kernel_ms": kernel_ms, "first_round_ms": first_ms, "plain_ms": plain_ms,
+        "plain_first_round_ms": plain_first_ms, "bound_ms": bound_ms,
+        "first_round_bound_ms": first_bound_ms, "bound_by": "bytes", "library_ms": None,
+    }
+
+
 def reconstruction_phase(torch, L, device, y, win) -> dict:
     """Phase 4d: config 3 driven, checked and timed; launch counts and the ola_norm entry."""
     import scipy.signal
@@ -1000,6 +1114,7 @@ def reconstruction_phase(torch, L, device, y, win) -> dict:
     from librosa_tpu_torch.core import spectrum
     from librosa_tpu_torch.entry import reconstruction
     from librosa_tpu_torch.ops import db_scale, fused_stft, ola_norm
+    from librosa_tpu_torch.ops import phase_update as pu
 
     n_fft, hop = RECON["n_fft"], RECON["hop_length"]
     win64 = np.asarray(win, dtype=np.float64)
@@ -1010,10 +1125,11 @@ def reconstruction_phase(torch, L, device, y, win) -> dict:
     fused_stft.launches = 0
     db_scale.launches = 0
     ola_norm.launches = 0
+    pu.launches = 0
     y16k, y_hat = forward(y)
     torch.cuda.synchronize()
     counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
-              "ola_norm": ola_norm.launches}
+              "ola_norm": ola_norm.launches, "phase_update": pu.launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     n16 = y16k.shape[-1]
     n_frames = 1 + n16 // hop
@@ -1021,8 +1137,8 @@ def reconstruction_phase(torch, L, device, y, win) -> dict:
           f"{tuple(y_hat.shape)} over {n_frames} frames, 32 rounds; launches {counts}; peak "
           f"memory {peak_bytes} bytes, {peak_bytes - base_bytes} above the {base_bytes} held "
           f"before the call")
-    if counts != {"stft_mel": 1, "db_scale": 0, "ola_norm": 33}:
-        raise AssertionError(f"reconstruction launched {counts}, expected 1, 0 and 33")
+    if counts != {"stft_mel": 1, "db_scale": 0, "ola_norm": 33, "phase_update": 32}:
+        raise AssertionError(f"reconstruction launched {counts}, expected 1, 0, 33 and 32")
     want_n = -(-MAIN_SHAPE[1] * 320 // 441)
     if tuple(y16k.shape) != (MAIN_SHAPE[0], want_n) or tuple(y_hat.shape) != tuple(y16k.shape):
         raise AssertionError(f"reconstruction shapes {tuple(y16k.shape)}, {tuple(y_hat.shape)}")
@@ -1192,7 +1308,11 @@ def reconstruction_phase(torch, L, device, y, win) -> dict:
     }
     k1 = {"shape": [MAIN_SHAPE[0], n16], "snr_db": float(k1_tracks.min()),
           "last_frame_snr_db": k1_last, "max_abs_err": k1_max_err, "float64_snr_db": min(k1_f64)}
-    return {"launches": counts, "ola_norm": entry, "stft_mel": k1, "e2e_ms": e2e_ms}
+    update_entry = phase_update_phase(torch, device)
+    update_entry["launches"] = counts["phase_update"]
+    update_entry["launches_by_path"] = {"reconstruction": counts["phase_update"]}
+    return {"launches": counts, "ola_norm": entry, "phase_update": update_entry, "stft_mel": k1,
+            "e2e_ms": e2e_ms}
 
 
 def tuning64(S, *, sr, n_fft, fmin=150.0, fmax=4000.0, threshold=0.1, bins_per_octave=12,
@@ -3127,6 +3247,7 @@ def features_inversion_phase(torch, L, device, y, win) -> dict:
 
     from librosa_tpu_torch.feature.spectral import _contrast_bands
     from librosa_tpu_torch.ops import db_scale, fused_stft, median, ola_norm
+    from librosa_tpu_torch.ops import phase_update as pu
 
     rows, n = MAIN_SHAPE
     chirps = chirp_batch(torch, L, device)
@@ -3134,9 +3255,12 @@ def features_inversion_phase(torch, L, device, y, win) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     fused_stft.launches = db_scale.launches = ola_norm.launches = median.launches = 0
-    # the spies keep the inputs of contrast's two dB calls and of the last synthesis
+    pu.launches = 0
+    # the spies keep the inputs of contrast's two dB calls, of the last synthesis and of the
+    # last phase update (whose estimate is then the kernel's output)
     with CallSpy(db_scale, "db_scale", keep=2) as db_spy, \
-            CallSpy(ola_norm, "ola_norm", keep=1) as ola_spy:
+            CallSpy(ola_norm, "ola_norm", keep=1) as ola_spy, \
+            CallSpy(pu, "phase_update", keep=1) as pu_spy:
         out = {"spectral_bandwidth": L.feature.spectral_bandwidth(y=y, sr=SR),
                "spectral_contrast": L.feature.spectral_contrast(y=y, sr=SR),
                "spectral_flatness": L.feature.spectral_flatness(y=y),
@@ -3155,17 +3279,20 @@ def features_inversion_phase(torch, L, device, y, win) -> dict:
                                                                           length=n)
     torch.cuda.synchronize()
     counts = {"stft_mel": fused_stft.launches, "db_scale": db_scale.launches,
-              "ola_norm": ola_norm.launches, "median_filter": median.launches}
+              "ola_norm": ola_norm.launches, "median_filter": median.launches,
+              "phase_update": pu.launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"features and inversion: y {tuple(y.shape)}, chirps {tuple(chirps.shape)} -> "
           + ", ".join(f"{k} {tuple(v.shape)}" for k, v in out.items())
           + f"; launches {counts}; peak memory {peak_bytes} bytes, {peak_bytes - base_bytes} "
           f"above the {base_bytes} held before")
-    want = {"stft_mel": 7, "db_scale": 3, "ola_norm": 33, "median_filter": 0}
+    want = {"stft_mel": 7, "db_scale": 3, "ola_norm": 33, "median_filter": 0,
+            "phase_update": 32}
     if counts != want:
         raise AssertionError(f"features and inversion launched {counts}, expected {want} (K1: "
                              "four descriptors, chroma, mfcc, the chirps' mel; db_scale: "
-                             "contrast's two and mfcc's; ola_norm: 32 rounds and the last istft)")
+                             "contrast's two and mfcc's; ola_norm: 32 rounds and the last istft; "
+                             "phase_update: one a round)")
     if len(contrast_db_calls) != 2:
         raise AssertionError(f"spectral_contrast launched db_scale {len(contrast_db_calls)} "
                              "times, expected its peak's and its valley's")
@@ -3189,7 +3316,22 @@ def features_inversion_phase(torch, L, device, y, win) -> dict:
           f"bit-equal to plain: {bool(torch.equal(got, want))}")
     if not torch.equal(got, want):
         raise AssertionError("ola_norm at mel_to_audio's shape: not bit-equal to its plain version")
-    del contrast_db_calls, db_spy, ola_spy, args, kw, got, want
+    # the last round's update: the path's own output, and a second launch into NaN-filled
+    # memory, against the plain version on the same rebuilt spectra and magnitudes
+    (args, kw), = pu_spy.calls
+    estimate, rebuilt, tprev, S = args[:4]
+    want = torch.empty_like(estimate)
+    pu.phase_update_reference(want, *args[1:], **kw)
+    got = torch.full_like(estimate, float("nan"))
+    pu.phase_update(got, *args[1:], **kw)
+    same = bool(torch.equal(estimate, want)) and bool(torch.equal(got, want))
+    print(f"phase_update on mel_to_audio's last round {tuple(estimate.shape)}, strides "
+          f"{estimate.stride()}, tprev {tprev is not None}: bit-equal to plain: {same}")
+    if tprev is None or S.shape != estimate.shape or not same:
+        raise AssertionError("phase_update at mel_to_audio's shape: not bit-equal to its plain "
+                             "version, or not the last round's update")
+    del contrast_db_calls, db_spy, ola_spy, pu_spy, args, kw, got, want
+    del estimate, rebuilt, tprev, S
 
     frames = 1 + n // 512
     for key, value in out.items():
@@ -4588,7 +4730,8 @@ def main() -> int:
     for entry, kernel in ((stft_mel_entry, "stft_mel"), (db_entry, "db_scale"),
                           (ola_entry, "ola_norm"), (median_entry, "median_filter"),
                           (config5["beat_dp"], "beat_dp"), (config5["viterbi"], "viterbi"),
-                          (config5["trough_priors"], "trough_priors")):
+                          (config5["trough_priors"], "trough_priors"),
+                          (recon["phase_update"], "phase_update")):
         for path, phase in (("alignment_structure", structure), ("effects", effects),
                             ("features_inversion", features), ("pcen_spectrum_ext", pcen_ext),
                             ("segment_infrastructure", seg_infra), ("sharded", sharded),
@@ -4597,7 +4740,8 @@ def main() -> int:
             entry["launches_by_path"][path] = phase["launches"].get(kernel, 0)
     print(json.dumps({"kernels": [stft_mel_entry, db_entry, ola_entry, median_entry,
                                   config5["beat_dp"], config5["viterbi"],
-                                  config5["trough_priors"], *dial_scans["scans"].values(),
+                                  config5["trough_priors"], recon["phase_update"],
+                                  *dial_scans["scans"].values(),
                                   *diag_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

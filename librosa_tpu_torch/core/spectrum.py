@@ -17,12 +17,13 @@ from .. import filters
 from .._device import as_tensor, device_table
 from ..ops import db_scale as _db
 from ..ops import ola_norm as _ola
+from ..ops import phase_update as _pu
 from ..ops.fft import frames_rdft
 from ..ops.framing import frame_signal
 from ..ops.fused_stft import _fused, frames_power, kernel_refusal, stft_mel_reference
 from ..util import profiling
 from ..util.exceptions import ParameterError
-from ..util.utils import _host, _torch_dtype, dtype_c2r, dtype_r2c, pad_last, phasor, tiny
+from ..util.utils import _host, _torch_dtype, dtype_c2r, dtype_r2c, pad_last, phasor
 from .convert import frequency_weighting
 
 __all__ = [
@@ -378,15 +379,17 @@ def _phase_update(estimate: torch.Tensor, rebuilt: torch.Tensor, tprev: Optional
                   S: torch.Tensor, weight: float) -> None:
     """One Griffin-Lim update, in place: ``estimate <- S * unit(rebuilt - weight * tprev)``.
 
-    ``unit(z) = z / (|z| + tiny)``; ``tprev`` None stands for zeros. Four
-    passes over the complex tensor and one real temporary, no complex one.
+    ``unit(z) = z / (|z| + tiny)``; ``tprev`` None stands for zeros. What
+    ``ops/phase_update.py:kernel_refusal`` takes (complex64 and float32 on a
+    CUDA device, in one dense layout, as :func:`griffinlim` keeps them) is one
+    launch of the CUDA kernel ``csrc/phase_update.cu``; everything else (the
+    CPU, float64) runs the plain version, six torch passes over the complex
+    tensor and one real temporary.
     """
-    if tprev is None:
-        estimate.copy_(rebuilt)
+    if _pu.kernel_refusal(estimate, rebuilt, tprev, S) is None:
+        _pu.phase_update(estimate, rebuilt, tprev, S, weight)
     else:
-        torch.add(rebuilt, tprev, alpha=-weight, out=estimate)
-    estimate.div_(estimate.abs().add_(tiny(estimate)))
-    estimate.mul_(S)
+        _pu.phase_update_reference(estimate, rebuilt, tprev, S, weight)
 
 
 def magphase(D: Any, *, power: float = 1) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,6 +32,15 @@
 using std::max;
 using std::min;
 
+struct alignas(8) float2 {
+    float x, y;
+};
+struct alignas(16) float4 {
+    float x, y, z, w;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+
 struct EmuDim {
     unsigned x = 0, y = 1, z = 1;
 };

@@ -3,7 +3,8 @@ the ``reconstruction.catalog`` cell's per-layer readers, on the CPU (one case on
 
 - Under the profiler one ``griffinlim`` call of ``n_iter`` rounds records ``griffinlim`` once
   and, nested under it, ``griffinlim.istft``, ``.stft`` and ``.phase_update`` once a round; the
-  counter ``ola_norm_launches`` adds nothing on the CPU and one a launch on the card.
+  counter ``ola_norm_launches`` adds nothing on the CPU and one a launch on the card, and
+  ``phase_update_kernels`` one a round on the card.
 - Without the profiler nothing is recorded.
 - The readers on a synthetic window and on a tiny traced run of the cell.
 """
@@ -112,6 +113,15 @@ def test_ola_norm_counts_its_launches_on_the_card(card):
     assert [s.counters.get("ola_norm_launches", 0) for s in istft_spans] == [1] * 4
     assert outer.counters.get("ola_norm_launches", 0) == 1
     assert sum(s.counters.get("ola_norm_launches", 0) for s in spans) == 5
+
+
+@pytest.mark.card
+def test_phase_update_counts_one_kernel_a_round_on_the_card(card):
+    spans = _traced_griffinlim(_magnitudes(card), 4)
+    updates = [s for s in spans if s.name == "griffinlim.phase_update"]
+    # the first round (no tprev) among them
+    assert [s.counters.get("phase_update_kernels", 0) for s in updates] == [1] * 4
+    assert sum(s.counters.get("phase_update_kernels", 0) for s in spans) == 4
 
 
 # -- the readers on a synthetic window: seconds from BASE, on the Unix clock ------------------
